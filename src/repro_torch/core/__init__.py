@@ -1,0 +1,27 @@
+"""ParaQAOA core in PyTorch: graphs, partition, batched QAOA, merge, solve."""
+
+from repro_torch.core.graph import Graph, Problem, as_problem, cut_value, problem_value
+from repro_torch.core.paraqaoa import ParaQAOAConfig, ParaQAOAOutput, solve
+from repro_torch.core.partition import (
+    Partition,
+    connectivity_preserving_partition,
+    partition_for_solver,
+)
+from repro_torch.core.pei import approximation_ratio, efficiency_factor, pei
+
+__all__ = [
+    "Graph",
+    "Problem",
+    "as_problem",
+    "cut_value",
+    "problem_value",
+    "Partition",
+    "connectivity_preserving_partition",
+    "partition_for_solver",
+    "ParaQAOAConfig",
+    "ParaQAOAOutput",
+    "solve",
+    "approximation_ratio",
+    "efficiency_factor",
+    "pei",
+]

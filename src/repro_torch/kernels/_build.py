@@ -1,0 +1,131 @@
+"""Build and load the CUDA kernels: nvcc at first use, bound with ctypes.
+
+Each ``csrc/<name>.cu`` compiles to its own shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds). All sources are
+compiled together, one ``nvcc`` process each, into
+``<checkout>/build/kernels/<hash>/``, where the hash covers every source
+file and the compiler flags: an edited source gets a fresh directory, an
+unchanged one is loaded as built. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("cutvals", "fused_layer", "mixer", "phase")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+P = ctypes.c_void_p
+I64 = ctypes.c_int64
+I32 = ctypes.c_int
+# C signature of every entry point: pointers and the stream as void*,
+# sizes as int64/int; each returns cudaGetLastError() after its launch
+SIGNATURES = {
+    "cutvals": ("pq_cutvals", [P, P, P, I64, I64, I32, P]),
+    "fused_layer": ("pq_fused_phase_mixer", [P, P, P, P, P, P, P, I64, I64,
+                                             I32, I32, P]),
+    "mixer": ("pq_mixer_strided", [P, P, P, P, P, I64, I64, I32, I64, P]),
+    "phase": ("pq_expectation", [P, P, P, P, P, I64, I64, I64, P]),
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> dict[str, ctypes.CDLL]:
+    """Compile (if needed) and load every kernel library; idempotent."""
+    if len(_LIBS) == len(SOURCES):
+        return _LIBS
+    out_dir = BUILD_ROOT / source_hash()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in SOURCES:
+        so = out_dir / f"lib{name}.so"
+        if so.exists():
+            continue
+        tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, so)
+    failed = []
+    for name, (proc, tmp, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    for name in SOURCES:
+        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return _LIBS
+
+
+def entry(name: str):
+    """The C entry point of kernel library ``name`` (building on first use)."""
+    return getattr(build_all()[name], SIGNATURES[name][0])
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def require(t, name: str, dtype, shape: tuple, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what every kernel takes as given."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def on_cuda(t) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def stream(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

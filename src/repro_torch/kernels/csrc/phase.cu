@@ -1,0 +1,85 @@
+// Expectation of the diagonal objective, batched over subgraphs.
+//
+// Replaces: src/repro/kernels/phase.py::_exp_kernel (pallas_call at
+// phase.py:90), which carries one running sum across the sequential TPU
+// grid.
+//
+// Computes: out[b] = sum_x (re[b,x]^2 + im[b,x]^2) * c[b,x], f32 throughout.
+//
+// Bound on the H100: bytes. It reads 12 bytes per amplitude and does
+// 4 flops on them.
+//
+// Design: GPU blocks run in no order, so the running sum becomes a
+// deterministic two-pass reduction with no atomics. Pass 1: `parts`
+// blocks per batch row each sum a contiguous chunk (grid-stride per
+// thread, then a fixed shared-memory tree) into partial[b, p]. Pass 2:
+// one block per row sums its `parts` partials the same way. The order of
+// every addition depends only on the shapes, so the same inputs give the
+// same bits on every run. The product and sum per element are rounded as
+// the plain version rounds them (__fmul_rn/__fadd_rn, no FMA contraction).
+#include "common.cuh"
+
+namespace {
+
+__device__ __forceinline__ float block_sum(float v, float* s_buf) {
+  s_buf[threadIdx.x] = v;
+  __syncthreads();
+  for (int stride = pq::kThreads / 2; stride > 0; stride >>= 1) {
+    if (threadIdx.x < stride) s_buf[threadIdx.x] += s_buf[threadIdx.x + stride];
+    __syncthreads();
+  }
+  return s_buf[0];
+}
+
+__global__ void __launch_bounds__(pq::kThreads)
+expectation_partial_kernel(const float* __restrict__ re,
+                           const float* __restrict__ im,
+                           const float* __restrict__ cutv,
+                           float* __restrict__ partial, int64_t dim,
+                           int64_t parts) {
+  __shared__ float s_buf[pq::kThreads];
+  const int64_t b = blockIdx.x / parts;
+  const int64_t p = blockIdx.x % parts;
+  const int64_t chunk = dim / parts;
+  const int64_t begin = b * dim + p * chunk;
+  float acc = 0.f;
+  for (int64_t i = threadIdx.x; i < chunk; i += pq::kThreads) {
+    const float x = re[begin + i], y = im[begin + i];
+    const float prob = __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y));
+    acc = __fadd_rn(acc, __fmul_rn(prob, cutv[begin + i]));
+  }
+  const float total = block_sum(acc, s_buf);
+  if (threadIdx.x == 0) partial[blockIdx.x] = total;
+}
+
+__global__ void __launch_bounds__(pq::kThreads)
+expectation_final_kernel(const float* __restrict__ partial,
+                         float* __restrict__ out, int64_t parts) {
+  __shared__ float s_buf[pq::kThreads];
+  const float* row = partial + static_cast<int64_t>(blockIdx.x) * parts;
+  float acc = 0.f;
+  for (int64_t i = threadIdx.x; i < parts; i += pq::kThreads) acc += row[i];
+  const float total = block_sum(acc, s_buf);
+  if (threadIdx.x == 0) out[blockIdx.x] = total;
+}
+
+}  // namespace
+
+// re, im, cutv (B, dim) f32; partial (B, parts) f32 temporary; out (B,) f32.
+// parts divides dim.
+PQ_EXPORT int pq_expectation(const void* re, const void* im, const void* cutv,
+                             void* partial, void* out, int64_t batch,
+                             int64_t dim, int64_t parts, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  expectation_partial_kernel<<<static_cast<unsigned>(batch * parts),
+                               pq::kThreads, 0, st>>>(
+      static_cast<const float*>(re), static_cast<const float*>(im),
+      static_cast<const float*>(cutv), static_cast<float*>(partial), dim,
+      parts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  expectation_final_kernel<<<static_cast<unsigned>(batch), pq::kThreads, 0,
+                             st>>>(static_cast<const float*>(partial),
+                                   static_cast<float*>(out), parts);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,92 @@
+"""Transverse-field mixer groups: the strided CUDA kernel and its wrapper.
+
+The counterpart of ``repro/kernels/mixer.py``. ``mixer_group_strided``
+applies RX(2β)^{⊗k} to the middle axis of a (B, X, 2^k, Y) view with one
+β per batch row; the kernel is ``csrc/mixer.cu`` and its plain version
+`ref.mixer_group`. The trailing-axis launcher of the JAX package
+(``_mixer_kernel``, reached only for ``lo_bit == 0`` outside
+``apply_layer``) is not ported yet: ROADMAP.md lists it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+from repro_torch.kernels.ref import popcount
+
+launches = 0  # kernel launches through `mixer_group_strided` since the last reset
+
+
+def rx_group_mats(beta: torch.Tensor, k: int):
+    """(C, D), each (B, 2^k, 2^k): Re and Im of the RX-group unitary per row.
+
+    The generator form of ``repro/kernels/mixer.py::rx_group_mats``:
+    integer powers as ``pow`` on magnitudes plus sign bookkeeping, exact
+    for negative bases. Both matrices are symmetric; C is even in β and D
+    odd, so the group's adjoint is the same generator at −β. The CUDA
+    kernels never build these matrices (they apply k butterflies); the
+    tests hold this form against `ref.rx_kron_parts`.
+    """
+    dk = 2**k
+    a = torch.arange(dk, dtype=torch.int32, device=beta.device)
+    d = popcount(a[:, None] ^ a[None, :])
+    dd = d.to(torch.float32)
+    kk = torch.tensor(float(k), dtype=torch.float32, device=beta.device)
+    cb = torch.cos(beta)[:, None, None]
+    sb = torch.sin(beta)[:, None, None]
+    neg1 = torch.tensor(-1.0, dtype=torch.float32, device=beta.device)
+    mag = (
+        torch.pow(cb.abs(), kk - dd)
+        * torch.pow(sb.abs(), dd)
+        * torch.where(cb < 0, torch.pow(neg1, kk - dd), 1.0)
+        * torch.where(sb < 0, torch.pow(neg1, dd), 1.0)
+    )
+    m4 = d % 4
+    cmat = mag * torch.where(m4 == 0, 1.0, torch.where(m4 == 2, -1.0, 0.0))
+    dmat = mag * torch.where(m4 == 1, -1.0, torch.where(m4 == 3, 1.0, 0.0))
+    return cmat, dmat
+
+
+def mixer_group_strided(re3: torch.Tensor, im3: torch.Tensor,
+                        beta: torch.Tensor, k: int):
+    """RX(2β)^{⊗k} on the middle axis of (B, X, 2^k, Y) planes, β (B,)."""
+    if not _build.on_cuda(re3):
+        return ref.mixer_group(re3, im3, beta, k)
+    global launches
+    b, x, dk, y = re3.shape
+    if dk != 2**k or not 1 <= k <= 12 or y & (y - 1):
+        raise ValueError(f"bad mixer view {tuple(re3.shape)} for k={k}")
+    dev = re3.device
+    for t, name in ((re3, "re"), (im3, "im")):
+        _build.require(t, name, torch.float32, (b, x, dk, y), dev)
+    beta = beta.to(torch.float32).contiguous()
+    _build.require(beta, "beta", torch.float32, (b,), dev)
+    ore = torch.empty_like(re3)
+    oim = torch.empty_like(im3)
+    rc = _build.entry("mixer")(
+        re3.data_ptr(), im3.data_ptr(), beta.data_ptr(), ore.data_ptr(),
+        oim.data_ptr(), b, x, k, y, _build.stream(dev))
+    _build.check(rc, "mixer_group_strided")
+    launches += 1
+    return ore, oim
+
+
+def apply_mixer_bits(re: torch.Tensor, im: torch.Tensor, n: int, lo_bit: int,
+                     nbits: int, beta: torch.Tensor):
+    """RX(2β)^{⊗nbits} on qubits [lo_bit, lo_bit + nbits) of (B, 2^n) planes.
+
+    ``lo_bit > 0`` runs the strided kernel on the (B, X, 2^nbits, Y) view
+    (a metadata-only reshape). ``lo_bit == 0`` is the trailing-axis
+    kernel, not ported yet, so a CUDA tensor raises there.
+    """
+    b = re.shape[0]
+    shape = (b, 2 ** (n - lo_bit - nbits), 2**nbits, 2**lo_bit)
+    if lo_bit == 0 and _build.on_cuda(re):
+        raise NotImplementedError(
+            "the trailing-axis mixer kernel (repro/kernels/mixer.py::"
+            "_mixer_kernel) is not ported yet: ROADMAP.md queue 2, item 5")
+    ore, oim = mixer_group_strided(re.reshape(shape), im.reshape(shape),
+                                   beta, nbits)
+    return ore.reshape(b, -1), oim.reshape(b, -1)

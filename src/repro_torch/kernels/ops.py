@@ -1,0 +1,186 @@
+"""Dispatch and autograd for the kernels on the solve path.
+
+The counterpart of ``repro/kernels/ops.py``. Dispatch is by device: a CUDA
+tensor launches the hand-written kernel, a CPU tensor takes the plain
+version, and no path falls back from one to the other. Every state op is
+batched, (B, 2^n) planes with one γ and one β per row.
+
+The gradients mirror the JAX package's ``custom_vjp`` rules as
+``torch.autograd.Function``s. The QAOA layer unitaries are their own
+adjoints up to the sign of the angles, so each backward pass re-enters the
+same kernels at negated angles:
+
+- `apply_layer` (``_layer_vjp``, ops.py:407-451): the trailing mixer
+  groups at −β in reverse order, then the fused kernel in ``reverse``
+  mode at (−γ, −β); ∂β from neighbour sums over all n qubits of the
+  layer output, ∂γ from the phase rule on the layer input.
+- `apply_mixer_bits` (``_mixer_bits_vjp``, ops.py:302-330): the group at −β.
+- `expectation` (``_expectation_vjp``, ops.py:467-486): closed form.
+
+`cutvals` is forward only: the solve never differentiates it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import cutvals as cutvals_mod
+from repro_torch.kernels import fused_layer, mixer, phase
+
+# the wrapper modules whose `launches` counters `launch_counts` reports
+KERNELS = {
+    "cutvals": cutvals_mod,
+    "fused_phase_mixer_group": fused_layer,
+    "mixer_group_strided": mixer,
+    "expectation": phase,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last `reset_launch_counts`."""
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def cutvals(n: int, edges, weights, linear=None):
+    """(B, 2^n) objective values; ``linear`` (B, n) adds per-vertex terms."""
+    return cutvals_mod.cutvals(n, edges, weights, linear)
+
+
+# ---------------------------------------------------------------------------
+# the layer and its adjoint
+# ---------------------------------------------------------------------------
+
+def _layer_dispatch(n, group, re, im, cutv, gamma, beta):
+    """Phase + full mixer: the fused kernel for group 0, the strided kernel
+    for every group above it."""
+    b = re.shape[0]
+    k = min(group, n)
+    dk = 2**k
+    re_m, im_m = fused_layer.fused_phase_mixer_group(
+        re.reshape(b, -1, dk), im.reshape(b, -1, dk), cutv.reshape(b, -1, dk),
+        gamma, beta, k)
+    re, im = re_m.reshape(b, -1), im_m.reshape(b, -1)
+    for g0 in range(k, n, group):
+        re, im = mixer.apply_mixer_bits(re, im, n, g0, min(group, n - g0), beta)
+    return re, im
+
+
+def _layer_adjoint_dispatch(n, group, re, im, cutv, gamma, beta):
+    """Transpose of `_layer_dispatch` on a cotangent: the trailing groups at
+    −β in reverse order, then the fused kernel reversed at (−γ, −β)."""
+    b = re.shape[0]
+    k = min(group, n)
+    dk = 2**k
+    for g0 in reversed(range(k, n, group)):
+        re, im = mixer.apply_mixer_bits(re, im, n, g0, min(group, n - g0),
+                                        -beta)
+    re_m, im_m = fused_layer.fused_phase_mixer_group(
+        re.reshape(b, -1, dk), im.reshape(b, -1, dk), cutv.reshape(b, -1, dk),
+        -gamma, -beta, k, reverse=True)
+    return re_m.reshape(b, -1), im_m.reshape(b, -1)
+
+
+def _neighbor_sum_bits(v, lo_bit: int, nbits: int):
+    """Σ over qubits q in [lo_bit, lo_bit + nbits) of v with bit q flipped:
+    the ∂β generator contraction (each RX factor differentiates into −i·X
+    on its qubit). Per qubit, the (B, -1, 2, 2^q) view pairs each index
+    with its flip; adding the two halves crosswise in place is the
+    ``flip(2)`` add without a temporary plane."""
+    b = v.shape[0]
+    out = torch.zeros_like(v)
+    for q in range(lo_bit, lo_bit + nbits):
+        o = out.view(b, -1, 2, 2**q)
+        w = v.view(b, -1, 2, 2**q)
+        o[:, :, 0].add_(w[:, :, 1])
+        o[:, :, 1].add_(w[:, :, 0])
+    return out
+
+
+def _beta_grad(d_ore, d_oim, ore, oim, lo_bit: int, nbits: int):
+    """Per-row ∂β = Σ d_ore·N(oim) − Σ d_oim·N(ore), one neighbour-sum
+    plane alive at a time."""
+    fi = _neighbor_sum_bits(oim, lo_bit, nbits)
+    a = torch.sum(d_ore * fi, dim=-1)
+    del fi
+    fr = _neighbor_sum_bits(ore, lo_bit, nbits)
+    return a - torch.sum(d_oim * fr, dim=-1)
+
+
+class _Layer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, re, im, cutv, gamma, beta, n, group):
+        ore, oim = _layer_dispatch(n, group, re, im, cutv, gamma, beta)
+        # the inputs are the previous layer's outputs: saved, never cloned
+        ctx.save_for_backward(re, im, cutv, gamma, beta, ore, oim)
+        ctx.n, ctx.group = n, group
+        return ore, oim
+
+    @staticmethod
+    def backward(ctx, d_ore, d_oim):
+        re, im, cutv, gamma, beta, ore, oim = ctx.saved_tensors
+        n, group = ctx.n, ctx.group
+        # a cotangent may arrive strided (``out.sum()`` gives an expanded one)
+        d_ore, d_oim = d_ore.contiguous(), d_oim.contiguous()
+        # the full n-qubit mixer acts last: ∂β contracts on the output
+        d_beta = _beta_grad(d_ore, d_oim, ore, oim, 0, n)
+        g_re, g_im = _layer_adjoint_dispatch(n, group, d_ore, d_oim, cutv,
+                                             gamma, beta)
+        # ∂γ and ∂cutv from the phase rule on the layer input
+        t = im * g_re - re * g_im
+        d_gamma = torch.sum(cutv * t, dim=-1)
+        d_cutv = gamma[:, None] * t if ctx.needs_input_grad[2] else None
+        return g_re, g_im, d_cutv, d_gamma, d_beta, None, None
+
+
+def apply_layer(re, im, cutv, gamma, beta, n: int, group: int = 7):
+    """One QAOA layer on (B, 2^n) planes: cost phase, then the n-qubit
+    mixer; γ, β (B,). Differentiable in every tensor argument."""
+    return _Layer.apply(re, im, cutv, gamma, beta, n, group)
+
+
+class _MixerBits(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, re, im, beta, n, lo_bit, nbits):
+        ore, oim = mixer.apply_mixer_bits(re, im, n, lo_bit, nbits, beta)
+        ctx.save_for_backward(ore, oim, beta)
+        ctx.geom = (n, lo_bit, nbits)
+        return ore, oim
+
+    @staticmethod
+    def backward(ctx, d_ore, d_oim):
+        ore, oim, beta = ctx.saved_tensors
+        n, lo_bit, nbits = ctx.geom
+        d_ore, d_oim = d_ore.contiguous(), d_oim.contiguous()
+        g_re, g_im = mixer.apply_mixer_bits(d_ore, d_oim, n, lo_bit, nbits,
+                                            -beta)
+        d_beta = _beta_grad(d_ore, d_oim, ore, oim, lo_bit, nbits)
+        return g_re, g_im, d_beta, None, None, None
+
+
+def apply_mixer_bits(re, im, n: int, lo_bit: int, nbits: int, beta):
+    """RX(2β)^{⊗nbits} on qubits [lo_bit, lo_bit + nbits), differentiable."""
+    return _MixerBits.apply(re, im, beta, n, lo_bit, nbits)
+
+
+class _Expectation(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, re, im, cutv):
+        ctx.save_for_backward(re, im, cutv)
+        return phase.expectation(re, im, cutv)
+
+    @staticmethod
+    def backward(ctx, g):
+        re, im, cutv = ctx.saved_tensors
+        g = g[:, None]
+        d_cutv = g * (re * re + im * im) if ctx.needs_input_grad[2] else None
+        return 2.0 * g * re * cutv, 2.0 * g * im * cutv, d_cutv
+
+
+def expectation(re, im, cutv):
+    """Σ|ψ|²·c per row, (B,); differentiable in every argument."""
+    return _Expectation.apply(re, im, cutv)

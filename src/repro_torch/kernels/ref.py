@@ -1,0 +1,122 @@
+"""Plain PyTorch versions of every kernel on the solve path, batched.
+
+The counterpart of ``repro/kernels/ref.py`` with the ``vmap`` written out:
+every state tensor carries a leading batch axis B (one row per subgraph)
+and every angle is a (B,) tensor, one value per row. These functions are
+the semantics each CUDA kernel is held against, the branch the wrappers
+take for CPU tensors, and the yardstick ``chip_smoke.py`` times.
+
+Complex statevectors are (re, im) float32 planes of shape (B, 2^n).
+Bit convention: basis index ``b`` gives qubit ``q`` the bit ``(b >> q) & 1``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Linear (per-vertex) terms fold into the XOR edge form through a virtual
+# bit: h_v * bit_v(b) == h_v * (bit_v(b) XOR bit_30(b)) because bit 30 of
+# any int32 basis index is 0 for n <= 29. One appended row (v, 30, h_v) per
+# vertex makes the unchanged XOR kernel score quadratic + linear terms.
+VIRTUAL_BIT = 30
+
+
+def append_linear_rows(edges: torch.Tensor, weights: torch.Tensor,
+                       linear: torch.Tensor):
+    """Append one (v, VIRTUAL_BIT, h_v) row per vertex to batched edge arrays.
+
+    edges (B, E, 2) int32, weights (B, E) f32, linear (B, n) f32.
+    """
+    b, n = linear.shape
+    v = torch.arange(n, dtype=torch.int32, device=edges.device)
+    extra = torch.stack([v, torch.full_like(v, VIRTUAL_BIT)], dim=1)
+    extra = extra.unsqueeze(0).expand(b, n, 2)
+    return (torch.cat([edges, extra], dim=1),
+            torch.cat([weights, linear.to(weights.dtype)], dim=1))
+
+
+def popcount(x: torch.Tensor) -> torch.Tensor:
+    """Population count for non-negative int32 tensors (SWAR)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return x & 0x3F
+
+
+def cutvals(n: int, edges: torch.Tensor, weights: torch.Tensor,
+            linear: torch.Tensor | None = None) -> torch.Tensor:
+    """Objective value of every basis state of every row: (B, 2^n) f32.
+
+    Accumulates in f32 in edge order, one edge at a time, so integer
+    weights give exact integers. Padding rows (0, 0, w=0) add zero.
+    """
+    if linear is not None:
+        edges, weights = append_linear_rows(edges, weights, linear)
+    idx = torch.arange(2**n, dtype=torch.int32, device=edges.device)[None, :]
+    acc = torch.zeros((edges.shape[0], 2**n), dtype=torch.float32,
+                      device=edges.device)
+    for e in range(edges.shape[1]):
+        i = edges[:, e, 0:1]
+        j = edges[:, e, 1:2]
+        crossed = ((idx >> i) ^ (idx >> j)) & 1
+        acc = acc + weights[:, e:e + 1] * crossed.to(torch.float32)
+    return acc
+
+
+def apply_phase(re, im, cutv, gamma):
+    """Diagonal cost layer psi <- exp(-i gamma c) psi, gamma (B,)."""
+    g = gamma.reshape((-1,) + (1,) * (re.dim() - 1))
+    c = torch.cos(g * cutv)
+    s = torch.sin(g * cutv)
+    return re * c + im * s, im * c - re * s
+
+
+def rx_kron_parts(beta: torch.Tensor, k: int):
+    """(C, D), each (B, 2^k, 2^k), with C + iD = RX(2 beta)^{⊗k} per row.
+
+    Entry [a, b] = cos(beta)^(k-d) * (-i sin(beta))^d with d = popcount(a^b).
+    Integer powers come from cumulative-product tables, so negative bases
+    keep their exact sign.
+    """
+    a = torch.arange(2**k, dtype=torch.int32, device=beta.device)
+    d = popcount(a[:, None] ^ a[None, :]).long()
+    cb, sb = torch.cos(beta), torch.sin(beta)
+    ones = torch.ones_like(cb)[:, None]
+    cpow = torch.cumprod(torch.cat([ones, cb[:, None].expand(-1, k)], 1), 1)
+    spow = torch.cumprod(torch.cat([ones, sb[:, None].expand(-1, k)], 1), 1)
+    mag = cpow[:, k - d] * spow[:, d]  # (B, 2^k, 2^k)
+    rfac = torch.tensor([1.0, 0.0, -1.0, 0.0], device=beta.device)[d % 4]
+    ifac = torch.tensor([0.0, -1.0, 0.0, 1.0], device=beta.device)[d % 4]
+    return mag * rfac, mag * ifac
+
+
+def mixer_group(re3, im3, beta, k: int):
+    """RX(2 beta)^{⊗k} on the group axis of (B, X, 2^k, Y) planes."""
+    C, D = rx_kron_parts(beta, k)
+
+    def mm(u, x):
+        return torch.einsum("bac,bxcy->bxay", u, x)
+
+    return mm(C, re3) - mm(D, im3), mm(C, im3) + mm(D, re3)
+
+
+def apply_mixer_bits(re, im, n: int, lo_bit: int, nbits: int, beta):
+    """RX(2 beta)^{⊗nbits} on qubits [lo_bit, lo_bit + nbits) of (B, 2^n)."""
+    b = re.shape[0]
+    shape = (b, 2 ** (n - lo_bit - nbits), 2**nbits, 2**lo_bit)
+    ore, oim = mixer_group(re.reshape(shape), im.reshape(shape), beta, nbits)
+    return ore.reshape(b, -1), oim.reshape(b, -1)
+
+
+def apply_mixer(re, im, n: int, beta, group: int = 7):
+    """Full transverse-field mixer as ceil(n / group) grouped unitaries."""
+    for g0 in range(0, n, group):
+        re, im = apply_mixer_bits(re, im, n, g0, min(group, n - g0), beta)
+    return re, im
+
+
+def expectation(re, im, cutv):
+    """<psi| diag(c) |psi> per row: (B,)."""
+    return torch.sum((re * re + im * im) * cutv, dim=-1)

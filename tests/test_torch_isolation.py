@@ -1,0 +1,88 @@
+"""The port stands alone: no JAX, nothing of the JAX package, and no
+silent move to the CPU.
+
+- every ``repro_torch`` module imports in a fresh interpreter where any
+  import of ``jax`` or ``repro`` raises;
+- no source file of the port (nor ``chip_smoke.py``) names them;
+- the entry points default to CUDA and raise where it is missing;
+- ``chip_smoke.py`` fails, printing no result, without a GPU and without
+  the package beside it.
+"""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+
+_BLOCKER = r"""
+import importlib.abc, pkgutil, sys
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Blocker())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    __import__(name)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_every_module_imports_without_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKER], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 20  # every module of the slice
+
+
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+jax\b|\bimport\s+jax\b|(?<![\w/])repro\.",
+                        re.MULTILINE)
+
+
+def test_sources_name_neither_jax_nor_reference():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
+            for f in files for m in _FORBIDDEN.finditer(f.read_text())]
+    assert not hits, hits
+
+
+def test_solve_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from repro_torch.core import ParaQAOAConfig, solve
+    from repro_torch.core.graph import Graph
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = Graph.erdos_renyi(12, 0.3, seed=0)
+    with pytest.raises(RuntimeError, match="is_available"):
+        solve(g, ParaQAOAConfig(n_qubits=8))
+
+
+def test_chip_smoke_fails_without_gpu_and_without_package(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    runs = [subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=env,
+                           capture_output=True, text=True, timeout=120)]
+    lone = tmp_path / "lone"
+    lone.mkdir()
+    shutil.copy(REPO / "chip_smoke.py", lone)
+    runs.append(subprocess.run([sys.executable, "chip_smoke.py"], cwd=lone,
+                               env=env, capture_output=True, text=True,
+                               timeout=120))
+    for proc in runs:
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
