@@ -8,13 +8,22 @@ script builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 runs these phases, each printing one line, failing on the first fault:
 
 1. card: nvidia-smi's name and power limit, torch/CUDA versions, build time;
-2. every kernel of the solve path against its plain PyTorch version at the
-   main path's shapes (B = 18 subgraphs, n = 24 qubits), with times;
+2. every kernel against its plain PyTorch version at the shapes its path
+   gives it, with times: the single-device solve's (B = 18 subgraphs,
+   n = 24 qubits), and the sharded solve's (n = 26 over D = 4 shards);
 3. the autograd rules (kernel path) against plain-PyTorch autograd;
 4. the full-width solve: G(400, 0.1) Max-Cut at N = 24 qubits, with each
    kernel's launch count held against the count the code predicts;
 5. the same port on the card and on the CPU (G(60, 0.3), N = 10);
 6. linear terms (MIS) on the card and on the CPU;
+7. the sharded solve at full width: the same graph, N = 24 and mesh
+   ``model=4`` (all four shards on this card), 16 subgraphs of 25-26
+   qubits, launch counts held against the prediction;
+8. the sharded solve against the flat solve at N = 26 on its partition;
+9. the faithful and alternating swap schedules on one 26-qubit subgraph;
+10. 5 sharded Adam steps against 5 flat ones on that subgraph;
+11. chunk == 1 (n = 4, D = 4): the trailing-axis mixer on the path;
+12. two NCCL ranks against one process, where there are two cards;
 
 then one JSON line of per-kernel numbers, the nvidia-smi line, and
 ``{"ok": true, ...}`` as the last line. It exits non-zero, printing no
@@ -33,6 +42,7 @@ import time
 import numpy as np
 
 B_MAIN, N_MAIN, GROUP = 18, 24, 7  # the main path: G(400, 0.1) at N = 24
+D_MESH, M_SHARDED = 4, 16  # the sharded path: mesh model=4, 16 subgraphs
 CPU_BAND = 0.02  # of Σ|w|: the default-steps band of tests/test_torch_core.py
 TIE_RTOL = 1e-6  # marginals this close count as a tie the last ulp may break
 
@@ -52,6 +62,10 @@ KERNEL_META = {
                             "src/repro/kernels/mixer.py:115"),
     "expectation": ("src/repro_torch/kernels/csrc/phase.cu",
                     "src/repro/kernels/phase.py:70"),
+    "cutvals_at": ("src/repro_torch/kernels/csrc/cutvals.cu",
+                   "src/repro/kernels/cutvals.py:108"),
+    "mixer_group_trailing": ("src/repro_torch/kernels/csrc/fused_layer.cu",
+                             "src/repro/kernels/mixer.py:72"),
 }
 
 
@@ -128,6 +142,371 @@ def profile_step(torch, ops, qaoa_mod, edges, weights, cfg, solve_s) -> None:
              else "not measured (the profiler saw no device events)"))
     del cutv
     torch.cuda.empty_cache()
+
+
+def kernel_cutvals_at(torch, graph, dev, record, results) -> None:
+    """``cutvals_at`` on both views of every 26-qubit subgraph of the
+    sharded solve (phase 7), exactly against its plain version, with and
+    without linear rows; timed on the layout-A view."""
+    from repro_torch.core import engine, qaoa as qaoa_mod
+    from repro_torch.core.axis import LocalAxis
+    from repro_torch.core.partition import partition_for_solver
+    from repro_torch.kernels import cutvals as cutvals_mod, ref
+
+    axis = LocalAxis(D_MESH)
+    n = N_MAIN + axis.h
+    part = partition_for_solver(graph, n)
+    subs = [g for g in part.subgraphs if g.n == n]
+    edges, weights, _ = qaoa_mod.pad_subgraph_arrays(subs, n, device=dev)
+    lin = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (len(subs), n), dtype=np.float32), device=dev)
+    tables = engine.index_tables(engine.ShardedLayout(n=n, axis=axis), dev)
+    line = []
+    for view, idx in zip("AB", tables):
+        for label, linear in (("no linear", None), ("linear rows", lin)):
+            got = cutvals_mod.cutvals_at(idx, edges, weights, linear)
+            want = ref.cutvals_at(idx, edges, weights, linear)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"cutvals_at view {view} ({label}) differs "
+                  f"from its plain version by {float((got - want).abs().max())}")
+            del got, want
+        line.append(f"view {view}: equal with and without linear rows")
+    idx = tables[0]
+    ms = time_ms(torch, lambda: cutvals_mod.cutvals_at(idx, edges, weights), 10)
+    plain = time_ms(torch, lambda: ref.cutvals_at(idx, edges, weights), 2)
+    out_elems = len(subs) * idx.numel()
+    real_edges = int((weights != 0).sum())
+    record("cutvals_at", 0.0, ms, plain,
+           bytes_=4 * idx.numel() + 4 * out_elems + 12 * weights.numel(),
+           flops=2 * idx.numel() * real_edges)
+    r = results["cutvals_at"]
+    print(f"[2 kernel cutvals_at] n={n} D={D_MESH}: idx {tuple(idx.shape)} x "
+          f"{len(subs)} subgraphs, E_pad={edges.shape[1]} ({real_edges} real edges) | "
+          + " | ".join(line) + f" | kernel {ms:.3f} ms, plain {plain:.1f} ms, bound "
+          f"{r['bound_ms']:.3f} ms ({r['bound_by']}; integer issue bounds it in "
+          f"practice, as cutvals)")
+    del edges, weights, lin, tables, idx
+    torch.cuda.empty_cache()
+
+
+def predicted_sharded_launches(ops, dist_mod, axis, sizes, p, opt_steps, dev):
+    """Launches of one sharded solve, per kernel, from the code's own
+    rules: per launch of `sharded_qaoa_batch` (a group of same-n subgraphs
+    is split so its peak fits the card), 2 ``cutvals_at`` (layouts A and
+    B, alternating schedule), 1 expectation, and per layer 1 fused +
+    one strided per group above the first of the n - h local qubits, and
+    the global-qubit mix: strided, or trailing where chunk == 1."""
+    want = {k: 0 for k in ops.KERNELS}
+    for n in sorted(set(sizes)):
+        per = dist_mod.subgraphs_per_launch(n, p, opt_steps, axis, dev)
+        launches = len(dist_mod.launch_slices(sizes.count(n), per))
+        n_local = n - axis.h
+        mix = "mixer_group_strided" if n_local > axis.h else "mixer_group_trailing"
+        want["cutvals_at"] += 2 * launches
+        want["expectation"] += launches
+        want["fused_phase_mixer_group"] += p * launches
+        want["mixer_group_strided"] += p * len(range(GROUP, n_local, GROUP)) * launches
+        want[mix] += p * launches
+    return want
+
+
+def flat_marginal(torch, qaoa_mod, ops, sub, n, cfg, dev):
+    """The flat solve's marginal of one subgraph at the ramp angles, over
+    its real qubits (the pad qubits are the high bits)."""
+    e, w, _ = qaoa_mod.pad_subgraph_arrays([sub], n, device=dev)
+    g0, b0 = qaoa_mod.linear_ramp_init(cfg.p_layers, cfg.ramp_delta, device=dev)
+    with torch.no_grad():
+        re, im = qaoa_mod.qaoa_statevector(ops.cutvals(n, e, w), n, g0[None], b0[None])
+        return (re * re + im * im)[0].view(-1, 2**sub.n).sum(0)
+
+
+def sharded_solve_phases(torch, dev, graph) -> dict:
+    """Phases 7-10; returns phase 7's launch counts."""
+    from repro_torch.core import ParaQAOAConfig, solve
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.core import engine, qaoa as qaoa_mod
+    from repro_torch.core.axis import LocalAxis
+    from repro_torch.core.partition import partition_for_solver
+    from repro_torch.kernels import ops
+
+    axis = LocalAxis(D_MESH)
+    n_top = N_MAIN + axis.h
+    cfg = ParaQAOAConfig(n_qubits=N_MAIN, top_k=2, p_layers=3, sharded_opt_steps=0)
+    p = cfg.p_layers
+    part = partition_for_solver(graph, n_top)
+    check(part.m == M_SHARDED and min(part.sizes) > N_MAIN,
+          f"sharded partition sizes {part.sizes}: expected {M_SHARDED} above {N_MAIN}")
+    predicted = predicted_sharded_launches(ops, dist_mod, axis, list(part.sizes), p,
+                                           0, dev)
+
+    # ---- 7. the sharded solve through its entry point -------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = dist_mod.solve_distributed(graph, cfg, f"model={D_MESH}", device="cuda")
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    total_w = float(graph.total_weight())
+    extra = out.report.extra
+    print(f"[7 sharded solve] G(400, 0.1, seed=0) maxcut N={N_MAIN} mesh "
+          f"{extra['mesh']} ({extra['axis']}) K={cfg.top_k} p={p} sharded_opt_steps=0: "
+          f"cut {out.cut_value:.1f} of total weight {total_w:.0f} | M={part.m} "
+          f"sizes {dict(sorted((n, part.sizes.count(n)) for n in set(part.sizes)))}, "
+          f"{extra['sharded_subproblems']} sharded, beam={extra['beam']} | "
+          + " ".join(f"{k}={v:.3f}s" for k, v in out.timings.items())
+          + f" | peak memory {peak_gb:.2f} GB | launches {counts} predicted {predicted}")
+    check(extra["sharded_subproblems"] == M_SHARDED,
+          f"{extra['sharded_subproblems']} subgraphs sharded, expected {M_SHARDED}")
+    check(counts == predicted, f"launch counts {counts} != predicted {predicted}")
+    path = ("cutvals_at", "fused_phase_mixer_group", "mixer_group_strided", "expectation")
+    check(all(counts[k] > 0 for k in path), f"a kernel of the path never ran: {counts}")
+    check(np.isfinite(out.cut_value) and out.cut_value > total_w / 2,
+          f"cut {out.cut_value} not above half the weight")
+    torch.cuda.empty_cache()
+    profile_sharded(torch, dist_mod, qaoa_mod, part, n_top, axis, cfg, dev,
+                    out.timings["solve_s"])
+
+    # ---- 8. sharded = flat at the lifted budget, as check_solve_distributed --
+    cfg_flat = ParaQAOAConfig(n_qubits=n_top, top_k=2, p_layers=3, opt_steps=0)
+    torch.cuda.reset_peak_memory_stats()
+    flat = solve(graph, cfg_flat, partition=part, device="cuda")
+    flat_gb = torch.cuda.max_memory_allocated() / 1e9
+    ties = []
+    if flat.cut_value != out.cut_value:
+        for row in range(part.m):
+            a = {int(x) for x in out.candidates[row]}
+            b = {int(x) for x in flat.candidates[row]}
+            if a == b:
+                continue
+            marg = flat_marginal(torch, qaoa_mod, ops, part.subgraphs[row], n_top,
+                                 cfg_flat, dev)
+            kth = float(marg[list(b)].min())
+            for c in a - b:
+                check(abs(float(marg[c]) - kth) <= TIE_RTOL * kth,
+                      f"row {row}: sharded candidate {c} (marginal {float(marg[c])}) "
+                      f"is no tie for the flat K-th {kth}")
+            ties.append(row)
+            del marg
+    print(f"[8 sharded = flat] the flat solve at N={n_top} on the same partition: cut "
+          f"{flat.cut_value:.1f} vs sharded {out.cut_value:.1f} (rows whose candidates "
+          f"differ by a tie within {TIE_RTOL:g}: {ties}) | flat solve_s "
+          f"{flat.timings['solve_s']:.3f}s, peak memory {flat_gb:.2f} GB")
+    del flat
+    torch.cuda.empty_cache()
+
+    # ---- 9. the two swap schedules on one 26-qubit subgraph -------------------
+    sub = next(g for g in part.subgraphs if g.n == n_top)
+    e1, w1, _ = qaoa_mod.pad_subgraph_arrays([sub], n_top, device=dev)
+    g0, b0 = qaoa_mod.linear_ramp_init(p, cfg.ramp_delta, device=dev)
+    runs = {}
+    for sched in ("faithful", "alternating"):
+        ax = LocalAxis(D_MESH)
+        swaps = []
+        plain_swap = ax.swap
+        ax.swap = lambda x, chunk: (swaps.append(1), plain_swap(x, chunk))[1]
+        ops.reset_launch_counts()
+        res = dist_mod.sharded_qaoa(e1[0], w1[0], n_top, g0, b0, ax, top_k=cfg.top_k,
+                                    schedule=sched)
+        runs[sched] = (res, len(swaps) // 2, ops.launch_counts()["cutvals_at"])
+    (fa, fa_swaps, fa_cut), (al, al_swaps, al_cut) = runs["faithful"], runs["alternating"]
+    perr = float((fa.probs.sort().values - al.probs.sort().values).abs().max())
+    check(perr <= 1e-6, f"schedules' top-K probabilities differ by {perr} > 1e-6")
+    check((fa_swaps, al_swaps) == (2 * p, p), f"swaps {fa_swaps}, {al_swaps} != {2 * p}, {p}")
+    check((fa_cut, al_cut) == (1, 2), f"cutvals_at launches {fa_cut}, {al_cut} != 1, 2")
+    print(f"[9 schedules] n={n_top} D={D_MESH} p={p}: top-{cfg.top_k} probabilities "
+          f"agree to {perr:.3g} (tol 1e-6), expectation faithful "
+          f"{float(fa.expectation):.6f} alternating {float(al.expectation):.6f} | swaps "
+          f"faithful {fa_swaps} (2p), alternating {al_swaps} (p) | cutvals_at launches: "
+          f"faithful {fa_cut} (no layout-B view), alternating {al_cut}")
+
+    # ---- 10. 5 sharded Adam steps against 5 flat ones --------------------------
+    steps = 5
+    layout = engine.ShardedLayout(n=n_top, axis=axis)
+    cut = engine.cut_table(layout, e1, w1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gs, bs = engine.sharded_ascent(layout, cut, g0[None], b0[None], steps,
+                                   cfg.learning_rate)
+    torch.cuda.synchronize()
+    t_sharded = (time.perf_counter() - t0) / steps
+    sharded_gb = torch.cuda.max_memory_allocated() / 1e9
+    del cut
+    cutv = ops.cutvals(n_top, e1, w1)
+    qcfg = qaoa_mod.QAOAConfig(n_qubits=n_top, p_layers=p, opt_steps=steps,
+                               learning_rate=cfg.learning_rate)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gf, bf = qaoa_mod.optimize_params(cutv, n_top, qcfg)
+    torch.cuda.synchronize()
+    t_flat = (time.perf_counter() - t0) / steps
+    del cutv
+    err = max(float((gs - gf).abs().max()), float((bs - bf).abs().max()))
+    check(err <= 1e-4, f"sharded ascent vs flat: max angle difference {err} > 1e-4")
+    print(f"[10 sharded ascent] n={n_top} D={D_MESH} {steps} Adam steps: angles agree "
+          f"with the flat ascent to {err:.3g} (tol 1e-4) | per step: sharded "
+          f"{t_sharded * 1e3:.1f} ms (peak {sharded_gb:.2f} GB), flat "
+          f"{t_flat * 1e3:.1f} ms | gammas {[round(x, 5) for x in gs[0].tolist()]}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_sharded(torch, dist_mod, qaoa_mod, part, n, axis, cfg, dev, solve_s):
+    """Where the sharded solve stage's time goes: the n = 26 group again,
+    timed alone, then under torch.profiler with device time per kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    subs = [g for g in part.subgraphs if g.n == n]
+    e, w, _ = qaoa_mod.pad_subgraph_arrays(subs, n, device=dev)
+    g0, b0 = qaoa_mod.linear_ramp_init(cfg.p_layers, cfg.ramp_delta, device=dev)
+
+    def run():
+        return dist_mod.sharded_qaoa_batch(e, w, n, g0, b0, axis, top_k=cfg.top_k)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    top = " | ".join(f"{name[:60]} {ms:.1f} ms x{count}" for ms, count, name in rows[:8])
+    print(f"[7b where the time goes] the {len(subs)} subgraphs of n={n} through "
+          f"sharded_qaoa_batch: wall {wall_ms:.1f} ms (the whole solve stage took "
+          f"{solve_s:.3f} s) | kernels busy "
+          + (f"{busy:.1f} ms: {top}" if rows
+             else "not measured (the profiler saw no device events)"))
+    del e, w
+    torch.cuda.empty_cache()
+
+
+def chunk_one_phase(torch, dev) -> int:
+    """Phase 11: n = 4 over D = 4 leaves chunk = 1, so the global-qubit mix
+    is the trailing-axis kernel; held against the CPU. Returns its launches."""
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.core import engine, qaoa as qaoa_mod
+    from repro_torch.core.axis import LocalAxis
+    from repro_torch.core.graph import Graph
+    from repro_torch.kernels import ops
+
+    n, p = 4, 3
+    g = Graph.erdos_renyi(n, 0.7, seed=3)
+    g0, b0 = qaoa_mod.linear_ramp_init(p, 0.75)
+    predicted = predicted_sharded_launches(ops, dist_mod, LocalAxis(D_MESH), [n], p, 0,
+                                           dev)
+    ops.reset_launch_counts()
+    card = dist_mod.sharded_qaoa(g.edges.to(dev), g.weights.to(dev), n, g0.to(dev),
+                                 b0.to(dev), LocalAxis(D_MESH), top_k=4)
+    counts = ops.launch_counts()
+    check(counts == predicted, f"chunk == 1 launches {counts} != predicted {predicted}")
+    check(counts["mixer_group_trailing"] > 0, "the trailing kernel never ran")
+    cpu = dist_mod.sharded_qaoa(g.edges, g.weights, n, g0, b0, LocalAxis(D_MESH),
+                                top_k=4)
+    layout = engine.ShardedLayout(n=n, axis=LocalAxis(D_MESH))
+    planes = []
+    for d in (dev, "cpu"):
+        cut = engine.cut_table(layout, g.edges[None].to(d), g.weights[None].to(d))
+        with torch.no_grad():
+            re, im, _ = engine.evolve(layout, cut, g0[None].to(d), b0[None].to(d))
+        planes.append(torch.stack([re, im]).cpu())
+    err = float((planes[0] - planes[1]).abs().max())
+    exp_err = abs(float(card.expectation) - float(cpu.expectation))
+    prob_err = float((card.probs.cpu() - cpu.probs).abs().max())
+    check(err <= 1e-6 and exp_err <= 1e-5 and prob_err <= 1e-6,
+          f"chunk == 1 card vs CPU: states {err}, expectation {exp_err}, top-4 "
+          f"probabilities {prob_err}")
+    print(f"[11 chunk == 1] n={n} D={D_MESH} (L=4, chunk=1): launches {counts} = "
+          f"predicted | card vs CPU: states within {err:.3g} (tol 1e-6), top-4 "
+          f"probabilities within {prob_err:.3g} (tol 1e-6), expectation within "
+          f"{exp_err:.3g} (tol 1e-5)")
+    return counts["mixer_group_trailing"]
+
+
+def _nccl_inputs():
+    """The NCCL phase's instance: 2 subgraphs of 20 qubits, seeded."""
+    from repro_torch.core import qaoa as qaoa_mod
+    from repro_torch.core.graph import Graph
+
+    subs = [Graph.erdos_renyi(20, 0.3, seed=s) for s in (11, 12)]
+    e, w, _ = qaoa_mod.pad_subgraph_arrays(subs, 20)
+    g0, b0 = qaoa_mod.linear_ramp_init(3, 0.75)
+    return e, w, g0, b0
+
+
+def _nccl_rank(rank: int, port: int, src: str, queue) -> None:
+    """One rank of phase 12: a `ProcessGroupAxis` shard of every subgraph."""
+    sys.path.insert(0, src)
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import engine
+    from repro_torch.core.axis import ProcessGroupAxis
+    from repro_torch.core.distributed import sharded_qaoa_batch
+
+    axis = ProcessGroupAxis.from_env("cuda")
+    e, w, g0, b0 = (t.cuda() for t in _nccl_inputs())
+    layout = engine.ShardedLayout(n=20, axis=axis)
+    cut = engine.cut_table(layout, e, w)
+    with torch.no_grad():
+        re, im, _ = engine.evolve(layout, cut, g0.expand(2, -1), b0.expand(2, -1))
+    res = sharded_qaoa_batch(e, w, 20, g0, b0, axis, opt_steps=2)
+    queue.put((rank, re.cpu().numpy(), im.cpu().numpy(),
+               *(x.cpu().numpy() for x in res)))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def nccl_phase(torch, root: str) -> None:
+    """Phase 12: two NCCL ranks (`ProcessGroupAxis`) against `LocalAxis` on
+    one card, where the machine has two cards."""
+    if torch.cuda.device_count() < 2:
+        print(f"[12 nccl] not run: {torch.cuda.device_count()} CUDA device(s) visible, "
+              "the NCCL route needs 2 (tests/test_torch_sharded.py runs the same "
+              "ProcessGroupAxis over gloo on the CPU)")
+        return
+    import socket
+
+    import torch.multiprocessing as mp
+    from repro_torch.core import engine
+    from repro_torch.core.axis import LocalAxis
+    from repro_torch.core.distributed import sharded_qaoa_batch
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    queue = mp.get_context("spawn").SimpleQueue()
+    ctx = mp.spawn(_nccl_rank, args=(port, os.path.join(root, "src"), queue),
+                   nprocs=2, join=False)
+    got = sorted((queue.get() for _ in range(2)), key=lambda r: r[0])
+    while not ctx.join():
+        pass
+    axis = LocalAxis(2)
+    e, w, g0, b0 = (t.cuda() for t in _nccl_inputs())
+    layout = engine.ShardedLayout(n=20, axis=axis)
+    cut = engine.cut_table(layout, e, w)
+    with torch.no_grad():
+        re, im, _ = engine.evolve(layout, cut, g0.expand(2, -1), b0.expand(2, -1))
+    res = sharded_qaoa_batch(e, w, 20, g0, b0, axis, opt_steps=2)
+    state_err = max(float(np.abs(r[1] - re[i::2].cpu().numpy()).max())
+                    + float(np.abs(r[2] - im[i::2].cpu().numpy()).max())
+                    for i, r in enumerate(got))
+    res_err = max(float(np.abs(r[3 + f] - res[f].cpu().numpy()).max())
+                  for r in got for f in range(1, 5))
+    same_bits = all(np.array_equal(r[3], res.bitstrings.cpu().numpy()) for r in got)
+    check(state_err <= 1e-6 and res_err <= 1e-6 and same_bits,
+          f"NCCL vs LocalAxis: states {state_err}, results {res_err}, bits {same_bits}")
+    print(f"[12 nccl] 2 ranks x 2 subgraphs of 20 qubits: states within {state_err:.3g}, "
+          f"probabilities, expectations and 2-step angles within {res_err:.3g} "
+          f"(tol 1e-6) of LocalAxis(2) on one card, candidates equal")
 
 
 def main() -> int:
@@ -282,6 +661,28 @@ def main() -> int:
             r = results["mixer_group_strided"]
             r["max_abs_err"] = max(r["max_abs_err"], err)
 
+    # the trailing-axis mixer: k = 7 on the contiguous axis of the planes
+    v3 = (B_MAIN, dim // dk, dk)
+    r3, i3 = re.view(v3), im.view(v3)
+    err, tol = planes_err(mixer.mixer_group_trailing(r3, i3, beta, GROUP),
+                          mixer.mixer_group_trailing_plain(r3, i3, beta, GROUP))
+    torch.cuda.synchronize()
+    check(err <= tol, f"trailing mixer max_abs_err {err} > {tol}")
+    ms = time_ms(torch, lambda: mixer.mixer_group_trailing(r3, i3, beta, GROUP), 10)
+    plain = time_ms(torch, lambda: mixer.mixer_group_trailing_plain(r3, i3, beta,
+                                                                    GROUP), 3)
+    C, D = ref.rx_kron_parts(beta, GROUP)
+    u = torch.complex(C, D)
+    xc = torch.complex(r3, i3)
+    lib = time_ms(torch, lambda: torch.einsum("bac,bxc->bxa", u, xc), 3)
+    del u, xc
+    record("mixer_group_trailing", err, ms, plain, bytes_=16 * amps,
+           flops=amps * 6 * GROUP, library_ms=lib)
+    r = results["mixer_group_trailing"]
+    print(f"[2 kernel mixer_group_trailing] view {v3} k={GROUP} | max_abs_err {err:.3g} "
+          f"(tol {tol:.3g}) | kernel {ms:.3f} ms, plain {plain:.3f} ms, complex einsum "
+          f"{lib:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+
     got = phase.expectation(re, im, cutv)
     want = ref.expectation(re, im, cutv)
     again = phase.expectation(re, im, cutv)
@@ -299,6 +700,7 @@ def main() -> int:
           f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
     del re, im, cutv, got, want, again
     torch.cuda.empty_cache()
+    kernel_cutvals_at(torch, graph, dev, record, results)
 
     # ---- 3. autograd rules (kernel path) against plain-PyTorch autograd -----
     bg, ng = 4, 16
@@ -359,8 +761,10 @@ def main() -> int:
     p, steps = cfg.p_layers, cfg.opt_steps
     predicted = {
         "cutvals": 1,
+        "cutvals_at": 0,
         "fused_phase_mixer_group": steps * 2 * p + p,
         "mixer_group_strided": steps * 2 * p * groups_above + p * groups_above,
+        "mixer_group_trailing": 0,
         "expectation": steps + 1,
     }
     torch.cuda.synchronize()
@@ -448,7 +852,13 @@ def main() -> int:
     print(f"[6 linear terms] MIS on G(60, 0.1, seed=2) N=10 opt_steps=0: candidates "
           f"equal (tied rows {ties}), value card {val_g} CPU {val_c}")
 
-    # ---- 7. result lines ------------------------------------------------------
+    # ---- 7-12. the sharded statevector (mesh model=4) ------------------------
+    counts7 = sharded_solve_phases(torch, dev, graph)
+    results["cutvals_at"]["launches"] = counts7["cutvals_at"]
+    results["mixer_group_trailing"]["launches"] = chunk_one_phase(torch, dev)
+    nccl_phase(torch, root)
+
+    # ---- 13. result lines -----------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

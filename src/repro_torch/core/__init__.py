@@ -1,5 +1,7 @@
-"""ParaQAOA core in PyTorch: graphs, partition, batched QAOA, merge, solve."""
+"""ParaQAOA core in PyTorch: graphs, partition, batched QAOA, merge, solve,
+and the solve with a `model` mesh axis."""
 
+from repro_torch.core.axis import LocalAxis, ProcessGroupAxis
 from repro_torch.core.graph import Graph, Problem, as_problem, cut_value, problem_value
 from repro_torch.core.paraqaoa import ParaQAOAConfig, ParaQAOAOutput, solve
 from repro_torch.core.partition import (
@@ -8,6 +10,7 @@ from repro_torch.core.partition import (
     partition_for_solver,
 )
 from repro_torch.core.pei import approximation_ratio, efficiency_factor, pei
+from repro_torch.core.distributed import sharded_qaoa, solve_distributed
 
 __all__ = [
     "Graph",
@@ -21,6 +24,10 @@ __all__ = [
     "ParaQAOAConfig",
     "ParaQAOAOutput",
     "solve",
+    "solve_distributed",
+    "sharded_qaoa",
+    "LocalAxis",
+    "ProcessGroupAxis",
     "approximation_ratio",
     "efficiency_factor",
     "pei",

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.partition import Partition
-from repro_torch.core.qaoa import stable_topk
+from repro_torch.core.engine import stable_topk
 
 NEG = -1e30  # score of an empty frontier row
 

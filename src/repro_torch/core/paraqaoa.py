@@ -39,8 +39,9 @@ class ParaQAOAConfig:
     opt_steps: int = 30
     learning_rate: float = 0.05
     ramp_delta: float = 0.75
-    # Adam steps on oversized (model-axis sharded) subproblems; the sharded
-    # path is not ported, so the single-device solve never reads it
+    # Adam steps on oversized subproblems, through the sharded evolution of
+    # `distributed.solve_distributed`; 0 keeps the linear ramp. The
+    # single-device `solve` has no oversized subproblems and never reads it
     sharded_opt_steps: int = 0
     # beyond-paper 1-flip local-search refinement; not ported yet
     refine_steps: int = 0

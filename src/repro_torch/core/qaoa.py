@@ -49,7 +49,8 @@ def linear_ramp_init(p: int, delta: float, device=None):
 def qaoa_statevector(cutv, n: int, gammas, betas, group: int = 7):
     """Run the p-layer ansatz for every row; (re, im) planes (B, 2^n)."""
     layout = engine.FlatLayout(n=n, group=group)
-    return engine.evolve(layout, engine.CutTable(cutv), gammas, betas)
+    re, im, _ = engine.evolve(layout, engine.CutTable(cutv), gammas, betas)
+    return re, im
 
 
 def qaoa_expectation(params, cutv, n: int, group: int = 7):
@@ -76,14 +77,6 @@ def optimize_params(cutv, n: int, cfg: QAOAConfig):
     return engine.adam_scan(grad_fn, params, cfg.opt_steps, cfg.learning_rate)
 
 
-def stable_topk(x: torch.Tensor, k: int):
-    """Top-k along the last axis with ``jax.lax.top_k``'s tie order: among
-    equal values the lower index comes first (a stable descending sort).
-    Returns (values, indices int64)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
 def topk_marginal(re, im, n: int, real_mask, k: int):
     """Top-k bitstrings of each row's marginal over its real qubits.
 
@@ -106,7 +99,7 @@ def topk_marginal(re, im, n: int, real_mask, k: int):
         marg = marg.sum(dim=1)
         if k > 2**n_real:  # the keys past 2^n_real carry zero mass
             marg = torch.nn.functional.pad(marg, (0, 2**n - 2**n_real))
-        v, i = stable_topk(marg, k)
+        v, i = engine.stable_topk(marg, k)
         inds[rows] = i.to(torch.int32)
         vals[rows] = v
     return inds, vals

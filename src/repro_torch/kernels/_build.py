@@ -6,10 +6,15 @@ compiled together, one ``nvcc`` process each, into
 ``<checkout>/build/kernels/<hash>/``, where the hash covers every source
 file and the compiler flags: an edited source gets a fresh directory, an
 unchanged one is loaded as built. Nothing here runs at import time.
+
+A source may export more than one entry point (``cutvals.cu`` has the
+full-range and the indexed form); each entry point has its own launch
+count in `launches`, which its wrapper bumps once per launch.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -28,17 +33,34 @@ NVCC_FLAGS = (
 P = ctypes.c_void_p
 I64 = ctypes.c_int64
 I32 = ctypes.c_int
-# C signature of every entry point: pointers and the stream as void*,
-# sizes as int64/int; each returns cudaGetLastError() after its launch
+# every entry point: (source it is built from, C function, C signature),
+# pointers and the stream as void*, sizes as int64/int; each returns
+# cudaGetLastError() after its launch
 SIGNATURES = {
-    "cutvals": ("pq_cutvals", [P, P, P, I64, I64, I32, P]),
-    "fused_layer": ("pq_fused_phase_mixer", [P, P, P, P, P, P, P, I64, I64,
-                                             I32, I32, P]),
-    "mixer": ("pq_mixer_strided", [P, P, P, P, P, I64, I64, I32, I64, P]),
-    "phase": ("pq_expectation", [P, P, P, P, P, I64, I64, I64, P]),
+    "cutvals": ("cutvals", "pq_cutvals", [P, P, P, I64, I64, I32, P]),
+    "cutvals_at": ("cutvals", "pq_cutvals_at",
+                   [P, P, P, P, I64, I64, I64, I64, P]),
+    "fused_layer": ("fused_layer", "pq_fused_phase_mixer",
+                    [P, P, P, P, P, P, P, I64, I64, I32, I32, P]),
+    "mixer_trailing": ("fused_layer", "pq_mixer_trailing",
+                       [P, P, P, P, P, I64, I64, I32, P]),
+    "mixer": ("mixer", "pq_mixer_strided",
+              [P, P, P, P, P, I64, I64, I32, I64, P]),
+    "phase": ("phase", "pq_expectation", [P, P, P, P, P, I64, I64, I64, P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+# kernel launches per wrapper name since the last `reset_launches`
+launches: collections.Counter = collections.Counter()
+
+
+def count_launch(name: str) -> None:
+    launches[name] += 1
+
+
+def reset_launches() -> None:
+    launches.clear()
 
 
 def _nvcc() -> str:
@@ -83,18 +105,18 @@ def build_all() -> dict[str, ctypes.CDLL]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     for name in SOURCES:
-        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
+        _LIBS[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+    for source, fn_name, argtypes in SIGNATURES.values():
+        fn = getattr(_LIBS[source], fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
     return _LIBS
 
 
 def entry(name: str):
-    """The C entry point of kernel library ``name`` (building on first use)."""
-    return getattr(build_all()[name], SIGNATURES[name][0])
+    """The C entry point ``name`` of `SIGNATURES` (building on first use)."""
+    source, fn_name, _ = SIGNATURES[name]
+    return getattr(build_all()[source], fn_name)
 
 
 def check(rc: int, what: str) -> None:

@@ -15,8 +15,6 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
-launches = 0  # kernel launches through `fused_phase_mixer_group` since the last reset
-
 
 def fused_phase_mixer_group_plain(re, im, cutv, gamma, beta, k: int,
                                   reverse: bool = False):
@@ -41,7 +39,6 @@ def fused_phase_mixer_group(re: torch.Tensor, im: torch.Tensor,
     if not _build.on_cuda(re):
         return fused_phase_mixer_group_plain(re, im, cutv, gamma, beta, k,
                                              reverse)
-    global launches
     b, r, dk = re.shape
     if dk != 2**k or not 1 <= k <= 12 or r & (r - 1):
         raise ValueError(f"bad fused view {tuple(re.shape)} for k={k}")
@@ -59,5 +56,5 @@ def fused_phase_mixer_group(re: torch.Tensor, im: torch.Tensor,
         beta.data_ptr(), ore.data_ptr(), oim.data_ptr(), b, r, k,
         int(reverse), _build.stream(dev))
     _build.check(rc, "fused_phase_mixer_group")
-    launches += 1
+    _build.count_launch("fused_phase_mixer_group")
     return ore, oim

@@ -1,11 +1,13 @@
-"""Transverse-field mixer groups: the strided CUDA kernel and its wrapper.
+"""Transverse-field mixer groups: the CUDA kernels and their wrappers.
 
-The counterpart of ``repro/kernels/mixer.py``. ``mixer_group_strided``
-applies RX(2β)^{⊗k} to the middle axis of a (B, X, 2^k, Y) view with one
-β per batch row; the kernel is ``csrc/mixer.cu`` and its plain version
-`ref.mixer_group`. The trailing-axis launcher of the JAX package
-(``_mixer_kernel``, reached only for ``lo_bit == 0`` outside
-``apply_layer``) is not ported yet: ROADMAP.md lists it.
+The counterpart of ``repro/kernels/mixer.py``, with one β per batch row.
+``mixer_group_strided`` applies RX(2β)^{⊗k} to the middle axis of a
+(B, X, 2^k, Y) view (the Pallas ``_mixer_strided_kernel``); its kernel is
+``csrc/mixer.cu``. ``mixer_group_trailing`` applies it to the trailing
+axis of a (B, R, 2^k) view (``_mixer_kernel``, launched by
+``mixer_group_matmul``); its kernel is the phase-free instance of
+``csrc/fused_layer.cu``. Their plain versions are `ref.mixer_group` and
+`mixer_group_trailing_plain`.
 """
 
 from __future__ import annotations
@@ -15,8 +17,6 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import popcount
-
-launches = 0  # kernel launches through `mixer_group_strided` since the last reset
 
 
 def rx_group_mats(beta: torch.Tensor, k: int):
@@ -54,7 +54,6 @@ def mixer_group_strided(re3: torch.Tensor, im3: torch.Tensor,
     """RX(2β)^{⊗k} on the middle axis of (B, X, 2^k, Y) planes, β (B,)."""
     if not _build.on_cuda(re3):
         return ref.mixer_group(re3, im3, beta, k)
-    global launches
     b, x, dk, y = re3.shape
     if dk != 2**k or not 1 <= k <= 12 or y & (y - 1):
         raise ValueError(f"bad mixer view {tuple(re3.shape)} for k={k}")
@@ -69,7 +68,38 @@ def mixer_group_strided(re3: torch.Tensor, im3: torch.Tensor,
         re3.data_ptr(), im3.data_ptr(), beta.data_ptr(), ore.data_ptr(),
         oim.data_ptr(), b, x, k, y, _build.stream(dev))
     _build.check(rc, "mixer_group_strided")
-    launches += 1
+    _build.count_launch("mixer_group_strided")
+    return ore, oim
+
+
+def mixer_group_trailing_plain(re3, im3, beta, k: int):
+    """Plain version: `ref.mixer_group` with the group as the last axis."""
+    b, r, dk = re3.shape
+    ore, oim = ref.mixer_group(re3.reshape(b, r, dk, 1), im3.reshape(b, r, dk, 1),
+                               beta, k)
+    return ore.view(b, r, dk), oim.view(b, r, dk)
+
+
+def mixer_group_trailing(re3: torch.Tensor, im3: torch.Tensor,
+                         beta: torch.Tensor, k: int):
+    """RX(2β)^{⊗k} on the trailing axis of (B, R, 2^k) planes, β (B,)."""
+    if not _build.on_cuda(re3):
+        return mixer_group_trailing_plain(re3, im3, beta, k)
+    b, r, dk = re3.shape
+    if dk != 2**k or not 1 <= k <= 12 or r & (r - 1):
+        raise ValueError(f"bad trailing mixer view {tuple(re3.shape)} for k={k}")
+    dev = re3.device
+    for t, name in ((re3, "re"), (im3, "im")):
+        _build.require(t, name, torch.float32, (b, r, dk), dev)
+    beta = beta.to(torch.float32).contiguous()
+    _build.require(beta, "beta", torch.float32, (b,), dev)
+    ore = torch.empty_like(re3)
+    oim = torch.empty_like(im3)
+    rc = _build.entry("mixer_trailing")(
+        re3.data_ptr(), im3.data_ptr(), beta.data_ptr(), ore.data_ptr(),
+        oim.data_ptr(), b, r, k, _build.stream(dev))
+    _build.check(rc, "mixer_group_trailing")
+    _build.count_launch("mixer_group_trailing")
     return ore, oim
 
 
@@ -77,16 +107,17 @@ def apply_mixer_bits(re: torch.Tensor, im: torch.Tensor, n: int, lo_bit: int,
                      nbits: int, beta: torch.Tensor):
     """RX(2β)^{⊗nbits} on qubits [lo_bit, lo_bit + nbits) of (B, 2^n) planes.
 
-    ``lo_bit > 0`` runs the strided kernel on the (B, X, 2^nbits, Y) view
-    (a metadata-only reshape). ``lo_bit == 0`` is the trailing-axis
-    kernel, not ported yet, so a CUDA tensor raises there.
+    ``lo_bit == 0`` runs the trailing-axis kernel on the (B, R, 2^nbits)
+    view, ``lo_bit > 0`` the strided kernel on the (B, X, 2^nbits, Y) view
+    (both metadata-only reshapes).
     """
     b = re.shape[0]
-    shape = (b, 2 ** (n - lo_bit - nbits), 2**nbits, 2**lo_bit)
-    if lo_bit == 0 and _build.on_cuda(re):
-        raise NotImplementedError(
-            "the trailing-axis mixer kernel (repro/kernels/mixer.py::"
-            "_mixer_kernel) is not ported yet: ROADMAP.md queue 2, item 5")
-    ore, oim = mixer_group_strided(re.reshape(shape), im.reshape(shape),
-                                   beta, nbits)
+    if lo_bit == 0:
+        shape = (b, 2 ** (n - nbits), 2**nbits)
+        ore, oim = mixer_group_trailing(re.reshape(shape), im.reshape(shape),
+                                        beta, nbits)
+    else:
+        shape = (b, 2 ** (n - lo_bit - nbits), 2**nbits, 2**lo_bit)
+        ore, oim = mixer_group_strided(re.reshape(shape), im.reshape(shape),
+                                       beta, nbits)
     return ore.reshape(b, -1), oim.reshape(b, -1)

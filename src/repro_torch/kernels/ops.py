@@ -16,39 +16,49 @@ same kernels at negated angles:
   layer output, ∂γ from the phase rule on the layer input.
 - `apply_mixer_bits` (``_mixer_bits_vjp``, ops.py:302-330): the group at −β.
 - `expectation` (``_expectation_vjp``, ops.py:467-486): closed form.
+- `apply_mixer` (ops.py:333-340): the chain of `apply_mixer_bits` groups.
 
-`cutvals` is forward only: the solve never differentiates it.
+`cutvals` and `cutvals_at` are forward only: no solve path differentiates
+the cut tables.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import cutvals as cutvals_mod
 from repro_torch.kernels import fused_layer, mixer, phase
 
-# the wrapper modules whose `launches` counters `launch_counts` reports
-KERNELS = {
-    "cutvals": cutvals_mod,
-    "fused_phase_mixer_group": fused_layer,
-    "mixer_group_strided": mixer,
-    "expectation": phase,
-}
+# every kernel wrapper, by the name its launches are counted under
+KERNELS = (
+    "cutvals",
+    "cutvals_at",
+    "fused_phase_mixer_group",
+    "mixer_group_strided",
+    "mixer_group_trailing",
+    "expectation",
+)
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last `reset_launch_counts`."""
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: _build.launches[name] for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    _build.reset_launches()
 
 
 def cutvals(n: int, edges, weights, linear=None):
     """(B, 2^n) objective values; ``linear`` (B, n) adds per-vertex terms."""
     return cutvals_mod.cutvals(n, edges, weights, linear)
+
+
+def cutvals_at(idx, edges, weights, linear=None):
+    """(B·S, L) objective values of every edge row at the basis states of
+    the (S, L) int32 table ``idx``; ``linear`` (B, n) adds per-vertex terms."""
+    return cutvals_mod.cutvals_at(idx, edges, weights, linear)
 
 
 # ---------------------------------------------------------------------------
@@ -165,6 +175,14 @@ class _MixerBits(torch.autograd.Function):
 def apply_mixer_bits(re, im, n: int, lo_bit: int, nbits: int, beta):
     """RX(2β)^{⊗nbits} on qubits [lo_bit, lo_bit + nbits), differentiable."""
     return _MixerBits.apply(re, im, beta, n, lo_bit, nbits)
+
+
+def apply_mixer(re, im, n: int, beta, group: int = 7):
+    """The full n-qubit mixer as a chain of differentiable groups: the
+    trailing kernel for qubits 0..group-1, the strided one above them."""
+    for g0 in range(0, n, group):
+        re, im = apply_mixer_bits(re, im, n, g0, min(group, n - g0), beta)
+    return re, im
 
 
 class _Expectation(torch.autograd.Function):

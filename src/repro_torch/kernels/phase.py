@@ -14,7 +14,6 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
-launches = 0  # kernel launches through `expectation` since the last reset
 ELEMS_PER_BLOCK = 16384  # pass-1 chunk target; at most MAX_PARTS partials a row
 MAX_PARTS = 1024
 
@@ -29,7 +28,6 @@ def expectation(re: torch.Tensor, im: torch.Tensor,
     """⟨ψ|diag(c)|ψ⟩ per row: (B,) f32."""
     if not _build.on_cuda(re):
         return ref.expectation(re, im, cutv)
-    global launches
     b, dim = re.shape
     if dim & (dim - 1):
         raise ValueError(f"state width {dim} is not a power of two")
@@ -43,5 +41,5 @@ def expectation(re: torch.Tensor, im: torch.Tensor,
         re.data_ptr(), im.data_ptr(), cutv.data_ptr(), partial.data_ptr(),
         out.data_ptr(), b, dim, parts, _build.stream(dev))
     _build.check(rc, "expectation")
-    launches += 1
+    _build.count_launch("expectation")
     return out

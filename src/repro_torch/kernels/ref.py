@@ -47,22 +47,29 @@ def popcount(x: torch.Tensor) -> torch.Tensor:
 
 def cutvals(n: int, edges: torch.Tensor, weights: torch.Tensor,
             linear: torch.Tensor | None = None) -> torch.Tensor:
-    """Objective value of every basis state of every row: (B, 2^n) f32.
+    """Objective value of every basis state of every row: (B, 2^n) f32."""
+    idx = torch.arange(2**n, dtype=torch.int32, device=edges.device)[None, :]
+    return cutvals_at(idx, edges, weights, linear)
+
+
+def cutvals_at(idx: torch.Tensor, edges: torch.Tensor, weights: torch.Tensor,
+               linear: torch.Tensor | None = None) -> torch.Tensor:
+    """Objective values at the basis states of an (S, L) int32 table for
+    every edge row: (B·S, L) f32, row b·S + s = edge row b at idx[s].
 
     Accumulates in f32 in edge order, one edge at a time, so integer
     weights give exact integers. Padding rows (0, 0, w=0) add zero.
     """
     if linear is not None:
         edges, weights = append_linear_rows(edges, weights, linear)
-    idx = torch.arange(2**n, dtype=torch.int32, device=edges.device)[None, :]
-    acc = torch.zeros((edges.shape[0], 2**n), dtype=torch.float32,
-                      device=edges.device)
+    b, (s, width) = edges.shape[0], idx.shape
+    acc = torch.zeros((b, s, width), dtype=torch.float32, device=edges.device)
     for e in range(edges.shape[1]):
-        i = edges[:, e, 0:1]
-        j = edges[:, e, 1:2]
+        i = edges[:, e, 0].view(b, 1, 1)
+        j = edges[:, e, 1].view(b, 1, 1)
         crossed = ((idx >> i) ^ (idx >> j)) & 1
-        acc = acc + weights[:, e:e + 1] * crossed.to(torch.float32)
-    return acc
+        acc = acc + weights[:, e].view(b, 1, 1) * crossed.to(torch.float32)
+    return acc.view(b * s, width)
 
 
 def apply_phase(re, im, cutv, gamma):

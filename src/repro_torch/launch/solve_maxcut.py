@@ -1,11 +1,18 @@
-"""Max-Cut solve CLI for the single-GPU pipeline.
+"""Max-Cut solve CLI.
 
   PYTHONPATH=src python -m repro_torch.launch.solve_maxcut --n 400 --p 0.1 \
       --qubits 24 --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.solve_maxcut --n 400 --p 0.1 \
+      --qubits 24 --mesh model=4
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels (small
-``--qubits`` only). The mesh, refinement, GW-comparison, oracle-check and
-trace-export flags of the reference CLI are not ported yet (ROADMAP.md).
+``--qubits`` only). ``--mesh model=D`` lifts the qubit budget to
+N + log2(D) through the sharded statevector: in one process all D shards
+live on one device (`core.axis.LocalAxis`); under a launcher that sets
+``WORLD_SIZE`` = D (and ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) each
+process holds one shard (`core.axis.ProcessGroupAxis`). A `data` axis,
+and the refinement, GW-comparison, oracle-check and trace-export flags of
+the reference CLI, are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -46,6 +53,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="merge frontier width (default: exact 2*K^M, capped)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
+    ap.add_argument("--mesh", type=str, default=None, metavar="SPEC",
+                    help="mesh spec 'model=D' (D a power of two): shard "
+                    "each subgraph above the qubit budget over D shards, "
+                    "lifting the budget to N + log2(D). Omit for the "
+                    "single-device pipeline")
+    ap.add_argument("--schedule", choices=("faithful", "alternating"),
+                    default="alternating",
+                    help="swap schedule for sharded subproblems: 2 vs 1 "
+                    "qubit swaps per layer")
+    ap.add_argument("--sharded-opt-steps", type=int, default=0,
+                    help="Adam steps on sharded subproblem angles, through "
+                    "the sharded evolution; 0 keeps the linear ramp")
     return ap
 
 
@@ -77,7 +96,7 @@ def run(argv=None):
 
     import numpy as np
 
-    from repro_torch.core import ParaQAOAConfig, solve
+    from repro_torch.core import ParaQAOAConfig, solve, solve_distributed
     from repro_torch.core.graph import independent_set_violations
 
     graph, instance = make_instance(args)
@@ -86,8 +105,18 @@ def run(argv=None):
     cfg = ParaQAOAConfig(
         n_qubits=args.qubits, top_k=args.k, p_layers=args.layers,
         opt_steps=args.opt_steps, beam_width=args.beam,
+        sharded_opt_steps=args.sharded_opt_steps,
     )
-    out = solve(instance, cfg, device=args.device)
+    if args.mesh:
+        out = solve_distributed(instance, cfg, args.mesh,
+                                schedule=args.schedule, device=args.device)
+        extra = out.report.extra
+        print(f"[maxcut] mesh {extra['mesh']} ({extra['axis']}): "
+              f"{extra['sharded_subproblems']} model-sharded subproblems "
+              f"({extra['schedule']}, sharded_opt_steps="
+              f"{extra['sharded_opt_steps']})")
+    else:
+        out = solve(instance, cfg, device=args.device)
     print(f"[maxcut] value = {out.cut_value:.2f}  "
           f"(M={out.partition.m}, K={args.k}, {out.report.runtime_s:.2f}s, "
           f"{args.device})")

@@ -57,6 +57,35 @@ def test_cutvals_kernel_equals_plain(cuda_device, n):
         assert torch.equal(got, ref.cutvals(n, edges, w, linear))
 
 
+@pytest.mark.parametrize("n,d", [(6, 2), (10, 4), (13, 8)])
+def test_cutvals_at_kernel_equals_plain_on_both_views(cuda_device, n, d):
+    from repro_torch.core import engine
+    from repro_torch.core.axis import LocalAxis
+
+    rng = np.random.default_rng(n + d)
+    edges = torch.as_tensor(rng.integers(0, n, (3, 20, 2)).astype(np.int32),
+                            device=cuda_device)
+    w = torch.as_tensor(rng.choice([-1.0, 1.0, 2.0], (3, 20)).astype(np.float32),
+                        device=cuda_device)
+    lin = torch.as_tensor(rng.standard_normal((3, n)).astype(np.float32),
+                          device=cuda_device)
+    tables = engine.index_tables(engine.ShardedLayout(n=n, axis=LocalAxis(d)),
+                                 cuda_device)
+    for idx in tables:
+        for linear in (None, lin):
+            got = cutvals_mod.cutvals_at(idx, edges, w, linear)
+            assert torch.equal(got, ref.cutvals_at(idx, edges, w, linear))
+
+
+@pytest.mark.parametrize("n,k", [(4, 2), (10, 7), (13, 5)])
+def test_trailing_kernel_matches_plain(cuda_device, n, k):
+    re, im, _, _, b = _inputs(n, 3, 40 + n + k, cuda_device)
+    got = mixer.apply_mixer_bits(re, im, n, 0, k, b)
+    want = ref.apply_mixer_bits(re, im, n, 0, k, b)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, atol=2e-5, rtol=0)
+
+
 @pytest.mark.parametrize("n,k", [(6, 3), (10, 7), (13, 5)])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_fused_kernel_matches_plain(cuda_device, n, k, reverse):
@@ -92,7 +121,37 @@ def test_layer_counts_one_launch_per_kernel_call(cuda_device):
     ops.reset_launch_counts()
     ops.apply_layer(re, im, cutv, g, b, n, 7)
     ops.expectation(re, im, cutv)
-    assert ops.launch_counts() == {"cutvals": 0, "fused_phase_mixer_group": 1,
-                                   "mixer_group_strided": 2, "expectation": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mixer.apply_mixer_bits(re, im, n, 0, 7, b)
+    ops.apply_mixer(re, im, n, b, 7)  # the trailing group, then 2 strided
+    assert ops.launch_counts() == {
+        "cutvals": 0, "cutvals_at": 0, "fused_phase_mixer_group": 1,
+        "mixer_group_strided": 4, "mixer_group_trailing": 1, "expectation": 1}
+
+
+@pytest.mark.parametrize("schedule", ["faithful", "alternating"])
+def test_sharded_qaoa_on_the_card_matches_the_cpu(cuda_device, schedule):
+    from repro_torch.core.axis import LocalAxis
+    from repro_torch.core.distributed import sharded_qaoa
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.qaoa import linear_ramp_init
+
+    g = Graph.erdos_renyi(12, 0.5, seed=1)
+    g0, b0 = linear_ramp_init(3, 0.75)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ops.reset_launch_counts()
+        runs.append(sharded_qaoa(g.edges.to(dev), g.weights.to(dev), 12, g0.to(dev),
+                                 b0.to(dev), LocalAxis(4), schedule=schedule,
+                                 opt_steps=2))
+        if dev.type == "cuda":
+            counts = ops.launch_counts()
+    n_cut = 2 if schedule == "alternating" else 1
+    assert counts["cutvals_at"] == n_cut
+    assert counts["fused_phase_mixer_group"] > 0 and counts["mixer_group_strided"] > 0
+    card, cpu = runs
+    for a, c in zip(card[1:], cpu[1:]):
+        torch.testing.assert_close(a.cpu(), c, atol=1e-5, rtol=1e-5)
+    # complement pairs tie exactly in exact arithmetic: the last ulp may
+    # order them either way
+    mask = (1 << 12) - 1
+    assert ({min(int(x), int(x) ^ mask) for x in card.bitstrings.cpu()}
+            == {min(int(x), int(x) ^ mask) for x in cpu.bitstrings})

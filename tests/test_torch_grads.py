@@ -114,6 +114,16 @@ def test_apply_mixer_bits_grads_match_jax(n, lo, k):
         _inputs(n, seed=10 + n + lo), names)
 
 
+@pytest.mark.parametrize("n,group", [(5, 7), (9, 4)])
+def test_apply_mixer_grads_match_jax(n, group):
+    """The full mixer: the trailing group, then the strided ones."""
+    names = ["re", "im", "beta"]
+    _check(
+        lambda a: ops.apply_mixer(a["re"], a["im"], n, a["beta"], group),
+        lambda a: jax_ops.apply_mixer(a["re"], a["im"], n, a["beta"], group=group),
+        _inputs(n, seed=30 + n), names)
+
+
 @pytest.mark.parametrize("n", [4, 8])
 def test_expectation_grads_match_jax(n):
     names = ["re", "im", "cutv"]

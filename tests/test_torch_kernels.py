@@ -91,6 +91,38 @@ def test_cutvals_plain_matches_pallas(n):
         np.testing.assert_allclose(got_lin[r], np.asarray(want_lin), atol=1e-5)
 
 
+@pytest.mark.parametrize("n,s", [(6, 2), (9, 4)])
+def test_cutvals_at_plain_matches_pallas(n, s):
+    """An (S, L) table of arbitrary states, shared by every edge row."""
+    edges, w, lin = _edges(n, seed=50 + n)
+    idx = np.random.default_rng(n).permutation(2**n)[: s * 2**(n - 2)]
+    idx = idx.reshape(s, -1).astype(np.int32)
+    got = cutvals_mod.cutvals_at(_t(idx), _t(edges), _t(w)).numpy()
+    got_lin = cutvals_mod.cutvals_at(_t(idx), _t(edges), _t(w), _t(lin)).numpy()
+    for r in range(B):
+        for q in range(s):
+            args = (jnp.asarray(idx[q]), jnp.asarray(edges[r]), jnp.asarray(w[r]))
+            want = jax_cutvals.cutvals_at(*args, interpret=True)
+            np.testing.assert_array_equal(got[r * s + q], np.asarray(want))
+            want_lin = jax_cutvals.cutvals_at(*args, jnp.asarray(lin[r]),
+                                              interpret=True)
+            np.testing.assert_allclose(got_lin[r * s + q], np.asarray(want_lin),
+                                       atol=1e-5)
+
+
+@pytest.mark.parametrize("n,k", [(6, 3), (9, 7), (4, 2)])
+def test_trailing_mixer_plain_matches_pallas_matmul(n, k):
+    re, im, _, _, beta = _state(n, seed=60 + n + k)
+    v = (B, -1, 2**k)
+    got = mixer.mixer_group_trailing(_t(re).view(v), _t(im).view(v), _t(beta), k)
+    for r in range(B):
+        want = jax_mixer.mixer_group_matmul(
+            jnp.asarray(re[r]).reshape(-1, 2**k), jnp.asarray(im[r]).reshape(-1, 2**k),
+            jnp.float32(beta[r]), k, interpret=True)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g[r].numpy(), np.asarray(w), atol=STATE_ATOL)
+
+
 @pytest.mark.parametrize("n,k", [(6, 3), (9, 7), (10, 5)])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_fused_plain_matches_pallas(n, k, reverse):
@@ -214,8 +246,10 @@ def test_cpu_tensors_take_plain_branch_and_count_no_launch(monkeypatch):
     re, im, cutv, gamma, beta = (_t(a) for a in _state(n, seed=5))
     edges, w, lin = (_t(a) for a in _edges(n, seed=5))
     ops.cutvals(n, edges, w, lin)
+    ops.cutvals_at(torch.arange(16, dtype=torch.int32).view(2, 8), edges, w, lin)
     ops.apply_layer(re, im, cutv, gamma, beta, n, group=k)
     ops.apply_mixer_bits(re, im, n, 2, 7, beta)
+    ops.apply_mixer(re, im, n, beta, group=k)
     ops.expectation(re, im, cutv)
     v = (B, -1, 2**k)
     fused_layer.fused_phase_mixer_group(re.view(v), im.view(v), cutv.view(v),
