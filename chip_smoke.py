@@ -10,7 +10,8 @@ runs these phases, each printing one line, failing on the first fault:
 1. card: nvidia-smi's name and power limit, torch/CUDA versions, build time;
 2. every kernel against its plain PyTorch version at the shapes its path
    gives it, with times: the single-device solve's (B = 18 subgraphs,
-   n = 24 qubits), and the sharded solve's (n = 26 over D = 4 shards);
+   n = 24 qubits), the sharded solve's (n = 26 over D = 4 shards), and
+   the dense cut batch's (2^18 x 400 and 4,096 x 16,000 spins);
 3. the autograd rules (kernel path) against plain-PyTorch autograd;
 4. the full-width solve: G(400, 0.1) Max-Cut at N = 24 qubits, with each
    kernel's launch count held against the count the code predicts;
@@ -24,6 +25,9 @@ runs these phases, each printing one line, failing on the first fault:
 10. 5 sharded Adam steps against 5 flat ones on that subgraph;
 11. chunk == 1 (n = 4, D = 4): the trailing-axis mixer on the path;
 12. two NCCL ranks against one process, where there are two cards;
+13. the block-shape sweep (``repro_torch.benchmarks.kernel_autotune``) at
+    full width, every candidate's output held against the default's, and
+    the G(400, 0.1) solve with the swept table on and off;
 
 then one JSON line of per-kernel numbers, the nvidia-smi line, and
 ``{"ok": true, ...}`` as the last line. It exits non-zero, printing no
@@ -46,13 +50,6 @@ D_MESH, M_SHARDED = 4, 16  # the sharded path: mesh model=4, 16 subgraphs
 CPU_BAND = 0.02  # of Σ|w|: the default-steps band of tests/test_torch_core.py
 TIE_RTOL = 1e-6  # marginals this close count as a tie the last ulp may break
 
-# data-sheet peaks per card (bytes/s, f32 non-tensor FLOP/s)
-PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H100 SXM": (3.35e12, 67e12),
-}
-
 KERNEL_META = {
     "cutvals": ("src/repro_torch/kernels/csrc/cutvals.cu",
                 "src/repro/kernels/cutvals.py:47"),
@@ -66,7 +63,12 @@ KERNEL_META = {
                    "src/repro/kernels/cutvals.py:108"),
     "mixer_group_trailing": ("src/repro_torch/kernels/csrc/fused_layer.cu",
                              "src/repro/kernels/mixer.py:72"),
+    "apply_phase": ("src/repro_torch/kernels/csrc/phase.cu",
+                    "src/repro/kernels/phase.py:29"),
+    "cut_batch_dense": ("src/repro_torch/kernels/csrc/cutbatch.cu",
+                        "src/repro/kernels/cutbatch.py:28"),
 }
+DENSE_CHECK_ROWS = 64  # rows also scored through the edge list
 
 
 def fail(msg: str) -> None:
@@ -76,13 +78,6 @@ def fail(msg: str) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         fail(msg)
-
-
-def peaks_for(name: str):
-    for key in ("H100 PCIe", "H100 NVL"):
-        if all(w in name for w in key.split()):
-            return key, PEAKS[key]
-    return "H100 SXM", PEAKS["H100 SXM"]
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -187,6 +182,50 @@ def kernel_cutvals_at(torch, graph, dev, record, results) -> None:
           f"practice, as cutvals)")
     del edges, weights, lin, tables, idx
     torch.cuda.empty_cache()
+
+
+def kernel_cut_batch_dense(torch, dev, peak_key, record, results) -> None:
+    """``cut_batch_dense`` at the merge beam's width (2^18 seeded random
+    ±1 assignments of G(400, 0.1)) and at G(16000, 0.01) with 4,096 rows: exactly against its
+    plain version and, on the first rows, against the edge-list cut (±1
+    spins and unit weights sum to integers below 2^24); timed beside
+    cuBLAS (the same function as one f32 product and its epilogue, TF32
+    off), which the port never calls."""
+    from repro_torch.benchmarks.common import er_graph
+    from repro_torch.benchmarks.kernel_autotune import FULL, dense_inputs
+    from repro_torch.core.graph import cut_value_batch
+    from repro_torch.kernels import cutbatch, ref
+    from repro_torch.roofline.analysis import kernel_bound_s
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for f32 products")
+    parts = []
+    for b, v, p, seed in FULL.dense:
+        spins, adj, wtot = dense_inputs(b, v, p, seed, dev)
+        got = cutbatch.cut_batch_dense(spins, adj, wtot)
+        want = ref.cut_batch_dense(spins, adj, wtot)
+        rows = spins[:DENSE_CHECK_ROWS]
+        edge_cut = cut_value_batch(er_graph(v, p, seed), ((rows + 1) / 2).to(torch.int32))
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), f"cut_batch_dense ({b}, {v}) differs from its "
+              f"plain version by {err}")
+        check(torch.equal(got[:DENSE_CHECK_ROWS], edge_cut),
+              f"cut_batch_dense ({b}, {v}) differs from cut_value_batch")
+        ms = time_ms(torch, lambda: cutbatch.cut_batch_dense(spins, adj, wtot), 5)
+        plain = time_ms(torch, lambda: ref.cut_batch_dense(spins, adj, wtot), 3)
+        lib = time_ms(torch, lambda: (wtot - 0.5 * ((spins @ adj) * spins).sum(1)) * 0.5, 3)
+        flops, bytes_ = 2 * b * v * v + 3 * b * v, 4 * (b * v + v * v + b)
+        if "cut_batch_dense" not in results:  # the merge beam's shape
+            record("cut_batch_dense", err, ms, plain, bytes_=bytes_, flops=flops,
+                   library_ms=lib)
+        bound = kernel_bound_s(flops, bytes_, peak_key) * 1e3
+        parts.append(f"({b}, {v}) G({v}, {p}): equal to the plain version and to "
+                     f"cut_value_batch on {DENSE_CHECK_ROWS} rows, cut[0] "
+                     f"{float(got[0]):.0f} | kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+                     f"cuBLAS + epilogue {lib:.3f} ms, bound {bound:.3f} ms (operations)")
+        del spins, adj, wtot, got, want, edge_cut
+        torch.cuda.empty_cache()
+    print("[2 kernel cut_batch_dense] " + " || ".join(parts))
 
 
 def predicted_sharded_launches(ops, dist_mod, axis, sizes, p, opt_steps, dev):
@@ -509,6 +548,117 @@ def nccl_phase(torch, root: str) -> None:
           f"(tol 1e-6) of LocalAxis(2) on one card, candidates equal")
 
 
+# the built-in launch geometry of every swept (op, bucket) at full width:
+# the sweep must time it first
+DEFAULT_GEOMETRY = {
+    "apply_phase|2^24": {"tile": 4096},
+    "expectation|2^24": {"tile": 16384},
+    "mixer_matmul|2^17": {"row_tile": 32},
+    "fused_layer|2^17": {"row_tile": 32},
+    "mixer_strided|2^17": {"tile_y": 32},
+    "mixer_strided|2^21": {"tile_y": 512},
+    "cutvals|2^24": {"tile_b": 256, "edge_chunk": 1024},
+    "cutvals_at|2^26": {"tile_b": 256, "edge_chunk": 1024},
+    "cut_batch_dense|2^9": {"batch_tile": 128, "k_chunk": 16},
+    "cut_batch_dense|2^14": {"batch_tile": 128, "k_chunk": 16},
+}
+
+
+def tuning_phase(torch, dev, graph, peak_key, root) -> dict:
+    """Phase 13: the sweep of ``repro_torch.benchmarks.kernel_autotune`` at
+    full width, as its entry point runs it, with every candidate's output
+    held against the default's (bitwise; the expectation, whose reduction
+    order follows its tile, within 1e-6 relative); then the G(400, 0.1)
+    solve with the swept table off and on, in turns (off, on, on, off).
+    Returns the sweep's launch counts."""
+    from repro_torch.benchmarks import kernel_autotune as ka
+    from repro_torch.benchmarks.common import write_bench_json
+    from repro_torch.core import ParaQAOAConfig, solve
+    from repro_torch.kernels import ops, tuning
+
+    checked = []
+
+    def same(op, cand, out, default_out):
+        outs = out if isinstance(out, tuple) else (out,)
+        dflt = default_out if isinstance(default_out, tuple) else (default_out,)
+        for a, b in zip(outs, dflt):
+            if op == "expectation":
+                ok = torch.allclose(a, b, rtol=1e-6, atol=0)
+            else:
+                ok = torch.equal(a, b)
+            check(ok, f"{op} under {cand} differs from the default geometry's output "
+                  f"by {float((a - b).abs().max())}")
+        checked.append(op)
+
+    repeats = 3
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows, entries = ka.sweep_all(dev, ka.FULL, repeats, check=same)
+    sweep_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    swept = [r for r in rows if "speedup_vs_default" in r]
+    check({r["op"] for r in swept} == set(tuning.TUNABLE_OPS),
+          f"swept ops {sorted({r['op'] for r in swept})}")
+    for r in swept:
+        key = f"{r['op']}|{r['bucket']}"
+        check(r["default_config"] == DEFAULT_GEOMETRY.get(key),
+              f"{key}: first candidate {r['default_config']} is not the built-in "
+              f"geometry {DEFAULT_GEOMETRY.get(key)}")
+        check(r["tuned_s"] <= r["default_s"], f"{key}: tuned {r['tuned_s']} > default")
+        check(r["mode"] == "cuda" and bool(r["power_limit"]),
+              f"{key}: row of mode {r['mode']}, power limit {r['power_limit']}")
+    for op in ("apply_phase", "cut_batch_dense"):
+        want = sum(r["candidates"] for r in swept if r["op"] == op) * (repeats + 1)
+        check(counts[op] == want, f"{op}: {counts[op]} launches in the sweep, "
+              f"predicted {want} (candidates x {repeats + 1})")
+    out_dir = os.path.join(root, "build", "autotune")
+    write_bench_json(os.path.join(out_dir, "chip_smoke_sweep.json"), ka.SUITE, rows, dev)
+    with open(os.path.join(out_dir, "chip_smoke_table.json"), "w") as f:
+        json.dump({"entries": entries}, f, indent=1)
+    relayout = next(r for r in rows if r.get("op") == "mixer_relayout")
+    print(f"[13 tuning] sweep of {len(swept)} (op, bucket) at full width in "
+          f"{sweep_s:.1f} s, {len(checked)} non-default candidates equal to the "
+          f"default's output | launches {counts} | relayout path "
+          f"{relayout['unfused_s'] * 1e3:.3f} ms vs strided {relayout['fused_s'] * 1e3:.3f} ms")
+    for r in swept:
+        frac = r["achieved_frac"]
+        print(f"[13 tuning] {r['op']} {r['bucket']} {r['shape']}: default "
+              f"{r['default_config']} {r['default_s'] * 1e3:.3f} ms, tuned {r['config']} "
+              f"{r['tuned_s'] * 1e3:.3f} ms (x{r['speedup_vs_default']:.3f}, "
+              f"{r['candidates']} candidates), bound {r['model_bound_s'] * 1e3:.3f} ms, "
+              f"achieved {frac:.3f} of the {peak_key} bound")
+
+    # the solve of phase 4 with the swept table off and on, in turns
+    cfg = ParaQAOAConfig(n_qubits=N_MAIN)
+    runs = {"off": [], "on": []}
+    for label in ("off", "on", "on", "off"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        if label == "on":
+            with tuning.using_overrides(entries):
+                out = solve(graph, cfg, device="cuda")
+        else:
+            out = solve(graph, cfg, device="cuda")
+        runs[label].append((out.timings["total_s"], out.cut_value, ops.launch_counts()))
+    scale = float(graph.weights.abs().sum())
+    (_, cut_off, c_off) = runs["off"][0]
+    for label, rs in runs.items():
+        for _, cut, c in rs:
+            check(c == c_off, f"table {label}: launches {c} != untuned {c_off}")
+            check(abs(cut - cut_off) <= CPU_BAND * scale,
+                  f"table {label}: cut {cut} vs untuned {cut_off} outside "
+                  f"{CPU_BAND:.0%} of sum|w| = {scale}")
+    print(f"[13 tuned solve] G(400, 0.1, seed=0) N={N_MAIN}, in turns off, on, on, "
+          f"off: total_s off {[round(t, 3) for t, _, _ in runs['off']]}, on "
+          f"{[round(t, 3) for t, _, _ in runs['on']]} | cuts off "
+          f"{[c for _, c, _ in runs['off']]}, on {[c for _, c, _ in runs['on']]} (band "
+          f"{CPU_BAND:.0%} of sum|w| = {CPU_BAND * scale:.1f}) | launches equal")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -525,6 +675,7 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build, fused_layer, mixer, ops, phase, ref
     from repro_torch.kernels import cutvals as cutvals_mod
+    from repro_torch.roofline import analysis
 
     dev = resolve_device("cuda")  # also pins f32 products to full f32
 
@@ -537,7 +688,7 @@ def main() -> int:
     _build.build_all()
     build_s = time.perf_counter() - t0
     card = torch.cuda.get_device_name(0)
-    peak_key, (mem_bw, f32_rate) = peaks_for(card)
+    peak_key, (f32_rate, mem_bw) = analysis.peaks_for(card)
     print(f"[1 card] {card} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"CUDA {torch.version.cuda} | kernels built in {build_s:.2f} s | "
           f"bounds use the {peak_key} data sheet: {mem_bw / 1e12:.2f} TB/s, "
@@ -557,14 +708,12 @@ def main() -> int:
     results = {}
 
     def record(name, err, ms, plain_ms, bytes_, flops, library_ms=None):
-        bound_bytes = bytes_ / mem_bw * 1e3
-        bound_ops = flops / f32_rate * 1e3
         results[name] = {
             "name": name, "route": "cuda",
             "source": KERNEL_META[name][0], "replaces": KERNEL_META[name][1],
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bound_bytes, bound_ops),
-            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "bound_ms": analysis.kernel_bound_s(flops, bytes_, peak_key) * 1e3,
+            "bound_by": analysis.bound_by(flops, bytes_, peak_key),
             "library_ms": library_ms,
         }
 
@@ -698,9 +847,23 @@ def main() -> int:
     print(f"[2 kernel expectation] (B, 2^n)=({B_MAIN}, {dim}) | max rel err {rel:.3g} "
           f"(tol 1e-5), bitwise repeatable | kernel {r['ms']:.3f} ms, plain "
           f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
-    del re, im, cutv, got, want, again
+    del got, want, again
+
+    err, tol = planes_err(phase.apply_phase(re, im, cutv, gamma),
+                          ref.apply_phase(re, im, cutv, gamma))
+    torch.cuda.synchronize()
+    check(err <= tol, f"apply_phase max_abs_err {err} > {tol}")
+    ms = time_ms(torch, lambda: phase.apply_phase(re, im, cutv, gamma), 10)
+    plain = time_ms(torch, lambda: ref.apply_phase(re, im, cutv, gamma), 3)
+    record("apply_phase", err, ms, plain, bytes_=20 * amps, flops=7 * amps)
+    r = results["apply_phase"]
+    print(f"[2 kernel apply_phase] (B, 2^n)=({B_MAIN}, {dim}), per-row gamma | "
+          f"max_abs_err {err:.3g} (tol {tol:.3g}) | kernel {r['ms']:.3f} ms, plain "
+          f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+    del re, im, cutv
     torch.cuda.empty_cache()
     kernel_cutvals_at(torch, graph, dev, record, results)
+    kernel_cut_batch_dense(torch, dev, peak_key, record, results)
 
     # ---- 3. autograd rules (kernel path) against plain-PyTorch autograd -----
     bg, ng = 4, 16
@@ -741,6 +904,10 @@ def main() -> int:
             lambda v: ops.expectation(v["re"], v["im"], v["cutv"]),
             lambda v: ref.expectation(v["re"], v["im"], v["cutv"]),
             ["re", "im", "cutv"]),
+        "apply_phase": (
+            lambda v: stack(ops.apply_phase(v["re"], v["im"], v["cutv"], v["gamma"])),
+            lambda v: stack(ref.apply_phase(v["re"], v["im"], v["cutv"], v["gamma"])),
+            ["re", "im", "cutv", "gamma"]),
     }
     parts = []
     for name, (fk, fp, names) in cases.items():
@@ -766,6 +933,8 @@ def main() -> int:
         "mixer_group_strided": steps * 2 * p * groups_above + p * groups_above,
         "mixer_group_trailing": 0,
         "expectation": steps + 1,
+        "apply_phase": 0,
+        "cut_batch_dense": 0,
     }
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -858,7 +1027,12 @@ def main() -> int:
     results["mixer_group_trailing"]["launches"] = chunk_one_phase(torch, dev)
     nccl_phase(torch, root)
 
-    # ---- 13. result lines -----------------------------------------------------
+    # ---- 13. the block-shape sweep and the tuned solve -------------------------
+    sweep_counts = tuning_phase(torch, dev, graph, peak_key, root)
+    for name in ("apply_phase", "cut_batch_dense"):
+        results[name]["launches"] = sweep_counts[name]
+
+    # ---- 14. result lines -----------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

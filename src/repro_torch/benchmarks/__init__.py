@@ -1,0 +1,1 @@
+"""Benchmark entry points of the port (``python -m repro_torch.benchmarks.<name>``)."""

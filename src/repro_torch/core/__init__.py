@@ -2,7 +2,8 @@
 and the solve with a `model` mesh axis."""
 
 from repro_torch.core.axis import LocalAxis, ProcessGroupAxis
-from repro_torch.core.graph import Graph, Problem, as_problem, cut_value, problem_value
+from repro_torch.core.graph import (Graph, Problem, as_problem, cut_value, cut_value_batch,
+                                    problem_value)
 from repro_torch.core.paraqaoa import ParaQAOAConfig, ParaQAOAOutput, solve
 from repro_torch.core.partition import (
     Partition,
@@ -17,6 +18,7 @@ __all__ = [
     "Problem",
     "as_problem",
     "cut_value",
+    "cut_value_batch",
     "problem_value",
     "Partition",
     "connectivity_preserving_partition",

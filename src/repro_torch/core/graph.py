@@ -92,6 +92,17 @@ class Graph:
     def total_weight(self) -> torch.Tensor:
         return torch.sum(self.weights)
 
+    def dense_adjacency(self, device="cpu") -> torch.Tensor:
+        """(n, n) float32 symmetric adjacency on ``device``; padding rows
+        add weight 0 at (0, 0). Dense: n^2 floats (1 GB at n = 16,000)."""
+        i = self.edges[:, 0].long().to(device)
+        j = self.edges[:, 1].long().to(device)
+        w = self.weights.to(device)
+        a = torch.zeros((self.n, self.n), dtype=torch.float32, device=device)
+        a.index_put_((i, j), w, accumulate=True)
+        a.index_put_((j, i), w, accumulate=True)
+        return a
+
 
 @dataclasses.dataclass(frozen=True)
 class Problem:
@@ -176,10 +187,28 @@ def cut_value(graph: Graph, assignment: torch.Tensor) -> torch.Tensor:
     return torch.sum(graph.weights * crossed.to(graph.weights.dtype))
 
 
+def cut_value_batch(graph: Graph, assignments: torch.Tensor) -> torch.Tensor:
+    """Cut values of a batch of 0/1 assignments, (B, n) → (B,), on the
+    assignments' device. Integer weights give exact integers."""
+    s = torch.as_tensor(assignments).to(torch.int32)
+    e = graph.edges.long().to(s.device)
+    crossed = s[:, e[:, 0]] ^ s[:, e[:, 1]]
+    w = graph.weights.to(s.device)
+    return crossed.to(w.dtype) @ w
+
+
 def problem_value(problem: Problem, assignment: torch.Tensor) -> torch.Tensor:
     """Full objective (quadratic + linear + offset) of one 0/1 assignment."""
     x = torch.as_tensor(assignment).to(problem.linear.dtype)
     return cut_value(problem.graph, assignment) + problem.linear @ x + problem.offset
+
+
+def problem_value_batch(problem: Problem, assignments: torch.Tensor) -> torch.Tensor:
+    """Full objective for a batch of 0/1 assignments, (B, n) → (B,)."""
+    a = torch.as_tensor(assignments)
+    x = a.to(problem.linear.dtype)
+    return (cut_value_batch(problem.graph, a) + x @ problem.linear.to(a.device)
+            + problem.offset)
 
 
 def independent_set_violations(graph: Graph, assignment) -> int:

@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("cutvals", "fused_layer", "mixer", "phase")
+SOURCES = ("cutbatch", "cutvals", "fused_layer", "mixer", "phase")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -37,16 +37,20 @@ I32 = ctypes.c_int
 # pointers and the stream as void*, sizes as int64/int; each returns
 # cudaGetLastError() after its launch
 SIGNATURES = {
-    "cutvals": ("cutvals", "pq_cutvals", [P, P, P, I64, I64, I32, P]),
+    "cut_batch_dense": ("cutbatch", "pq_cut_batch_dense",
+                        [P, P, P, P, P, I64, I64, I32, I32, P]),
+    "cutvals": ("cutvals", "pq_cutvals", [P, P, P, I64, I64, I32, I64, I64, P]),
     "cutvals_at": ("cutvals", "pq_cutvals_at",
-                   [P, P, P, P, I64, I64, I64, I64, P]),
+                   [P, P, P, P, I64, I64, I64, I64, I64, I64, P]),
     "fused_layer": ("fused_layer", "pq_fused_phase_mixer",
-                    [P, P, P, P, P, P, P, I64, I64, I32, I32, P]),
+                    [P, P, P, P, P, P, P, I64, I64, I32, I32, I64, P]),
     "mixer_trailing": ("fused_layer", "pq_mixer_trailing",
-                       [P, P, P, P, P, I64, I64, I32, P]),
+                       [P, P, P, P, P, I64, I64, I32, I64, P]),
     "mixer": ("mixer", "pq_mixer_strided",
-              [P, P, P, P, P, I64, I64, I32, I64, P]),
-    "phase": ("phase", "pq_expectation", [P, P, P, P, P, I64, I64, I64, P]),
+              [P, P, P, P, P, I64, I64, I32, I64, I64, P]),
+    "apply_phase": ("phase", "pq_apply_phase",
+                    [P, P, P, P, P, P, I64, I64, I64, P]),
+    "expectation": ("phase", "pq_expectation", [P, P, P, P, P, I64, I64, I64, P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -22,7 +22,9 @@
 // bytes per amplitude for 6k flops.
 //
 // Design: no 2^k x 2^k matrix anywhere. A block loads a tile of whole
-// rows (4096 amplitudes, 32 KB of shared memory for both planes) with
+// rows (`tile_rows` rows of 2^k, at most 4096 amplitudes, 32 KB of shared
+// memory for both planes; 4096 >> k rows clamped to R unless the tuning
+// table says otherwise) with
 // coalesced loads, applies the phase in registers on the way in (or on
 // the way out, reversed), and applies RX^{⊗k} as k butterfly passes over
 // the tile in shared memory: k * 6 flops per amplitude instead of
@@ -89,9 +91,10 @@ template <bool kPhase>
 int launch(const void* re, const void* im, const void* cutv,
            const void* gamma, const void* beta, void* ore, void* oim,
            int64_t batch, int64_t rows_per_batch, int k, int reverse,
-           void* stream) {
-  int64_t tile_rows = pq::kTile >> k;
-  if (tile_rows > rows_per_batch) tile_rows = rows_per_batch;
+           int64_t tile_rows, void* stream) {
+  if (tile_rows < 1 || rows_per_batch % tile_rows ||
+      (tile_rows << k) > pq::kTile)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks_per_batch = rows_per_batch / tile_rows;
   fused_kernel<kPhase><<<static_cast<unsigned>(batch * blocks_per_batch),
                          pq::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -106,22 +109,23 @@ int launch(const void* re, const void* im, const void* cutv,
 }  // namespace
 
 // re, im, cutv, ore, oim (B, R, 2^k) f32; gamma, beta (B,) f32; R and 2^k
-// powers of two, k in [1, 12].
+// powers of two, k in [1, 12]; tile_rows divides R, tile_rows * 2^k <= kTile.
 PQ_EXPORT int pq_fused_phase_mixer(const void* re, const void* im,
                                    const void* cutv, const void* gamma,
                                    const void* beta, void* ore, void* oim,
                                    int64_t batch, int64_t rows_per_batch,
-                                   int k, int reverse, void* stream) {
+                                   int k, int reverse, int64_t tile_rows,
+                                   void* stream) {
   return launch<true>(re, im, cutv, gamma, beta, ore, oim, batch,
-                      rows_per_batch, k, reverse, stream);
+                      rows_per_batch, k, reverse, tile_rows, stream);
 }
 
 // re, im, ore, oim (B, R, 2^k) f32; beta (B,) f32; R and 2^k powers of
-// two, k in [1, 12].
+// two, k in [1, 12]; tile_rows divides R, tile_rows * 2^k <= kTile.
 PQ_EXPORT int pq_mixer_trailing(const void* re, const void* im,
                                 const void* beta, void* ore, void* oim,
                                 int64_t batch, int64_t rows_per_batch, int k,
-                                void* stream) {
+                                int64_t tile_rows, void* stream) {
   return launch<false>(re, im, nullptr, nullptr, beta, ore, oim, batch,
-                       rows_per_batch, k, 0, stream);
+                       rows_per_batch, k, 0, tile_rows, stream);
 }

@@ -14,8 +14,9 @@
 // 16 bytes per amplitude, against 6 * k flops per amplitude.
 //
 // Design: a block owns one (b, x) slab and a tile of y_tile lanes along
-// Y, the 2^k x y_tile sub-block of 4096 amplitudes (32 KB of shared memory
-// for both planes). Neighbouring threads take neighbouring y, so every
+// Y, the 2^k x y_tile sub-block of at most 4096 amplitudes (32 KB of
+// shared memory for both planes); y_tile is the wrapper's `tile_y` knob,
+// 2^(12-k) clamped to Y unless the tuning table says otherwise. Neighbouring threads take neighbouring y, so every
 // global load and store is coalesced, and the butterfly passes read
 // shared memory without bank conflicts once y_tile >= 32. RX^{⊗k} is
 // applied as k butterflies in shared memory (6k flops per amplitude, not
@@ -74,13 +75,17 @@ mixer_strided_kernel(const float* __restrict__ re,
 }  // namespace
 
 // re, im, ore, oim (B, X, 2^k, Y) f32 contiguous; beta (B,) f32; Y a power
-// of two, k in [1, 12].
+// of two, k in [1, 12]; y_tile a power of two dividing Y with
+// 2^k * y_tile <= kTile.
 PQ_EXPORT int pq_mixer_strided(const void* re, const void* im,
                                const void* beta, void* ore, void* oim,
                                int64_t batch, int64_t x_dim, int k,
-                               int64_t y_dim, void* stream) {
-  int log2_y_tile = 12 - k;  // dk * y_tile == kTile == 2^12
-  while ((int64_t(1) << log2_y_tile) > y_dim) --log2_y_tile;
+                               int64_t y_dim, int64_t y_tile, void* stream) {
+  if (y_tile < 1 || (y_tile & (y_tile - 1)) || y_dim % y_tile ||
+      (y_tile << k) > pq::kTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int log2_y_tile = 0;
+  while ((int64_t(1) << log2_y_tile) < y_tile) ++log2_y_tile;
   const int64_t y_tiles = y_dim >> log2_y_tile;
   mixer_strided_kernel<<<static_cast<unsigned>(batch * x_dim * y_tiles),
                          pq::kThreads, 0,

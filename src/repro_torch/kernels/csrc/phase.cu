@@ -1,25 +1,54 @@
-// Expectation of the diagonal objective, batched over subgraphs.
+// The diagonal cost layer and its expectation, batched over subgraphs.
 //
-// Replaces: src/repro/kernels/phase.py::_exp_kernel (pallas_call at
-// phase.py:90), which carries one running sum across the sequential TPU
-// grid.
+// pq_apply_phase replaces src/repro/kernels/phase.py::_phase_kernel
+// (pallas_call at phase.py:45), an elementwise pass over one statevector
+// with one gamma. It computes, per batch row b with its own gamma[b]:
+//   (re, im) <- (re cos(gamma c) + im sin(gamma c), im cos(gamma c) - re sin(gamma c)).
+// Bound on the H100: bytes. It reads re, im, c (12 bytes per amplitude)
+// and writes re, im (8 bytes), against one sincos and 7 flops.
+// Design: a one-dimensional grid of (B * dim) / tile blocks; a block owns
+// `tile` consecutive amplitudes of one row (tile divides dim, so no block
+// straddles two rows and each reads one gamma). Neighbouring threads take
+// neighbouring amplitudes, so every load and store is coalesced. The angle
+// is rounded as the plain version rounds it (__fmul_rn, then the
+// full-precision sincosf), and the products and sums are not contracted
+// into FMAs, so every tile gives the same bits.
 //
-// Computes: out[b] = sum_x (re[b,x]^2 + im[b,x]^2) * c[b,x], f32 throughout.
-//
+// pq_expectation replaces src/repro/kernels/phase.py::_exp_kernel
+// (pallas_call at phase.py:90), which carries one running sum across the
+// sequential TPU grid. It computes out[b] = sum_x (re^2 + im^2) * c, f32.
 // Bound on the H100: bytes. It reads 12 bytes per amplitude and does
 // 4 flops on them.
-//
 // Design: GPU blocks run in no order, so the running sum becomes a
 // deterministic two-pass reduction with no atomics. Pass 1: `parts`
 // blocks per batch row each sum a contiguous chunk (grid-stride per
 // thread, then a fixed shared-memory tree) into partial[b, p]. Pass 2:
 // one block per row sums its `parts` partials the same way. The order of
-// every addition depends only on the shapes, so the same inputs give the
-// same bits on every run. The product and sum per element are rounded as
-// the plain version rounds them (__fmul_rn/__fadd_rn, no FMA contraction).
+// every addition depends only on the shapes and `parts`, so the same
+// inputs give the same bits on every run. The product and sum per element
+// are rounded as the plain version rounds them (__fmul_rn/__fadd_rn, no
+// FMA contraction).
 #include "common.cuh"
 
 namespace {
+
+__global__ void __launch_bounds__(pq::kThreads)
+apply_phase_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                   const float* __restrict__ cutv,
+                   const float* __restrict__ gamma, float* __restrict__ ore,
+                   float* __restrict__ oim, int64_t blocks_per_row,
+                   int64_t tile) {
+  const float g = gamma[blockIdx.x / blocks_per_row];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
+  for (int64_t e = threadIdx.x; e < tile; e += pq::kThreads) {
+    const int64_t i = base + e;
+    float s, c;
+    sincosf(__fmul_rn(g, cutv[i]), &s, &c);
+    const float x = re[i], y = im[i];
+    ore[i] = __fadd_rn(__fmul_rn(x, c), __fmul_rn(y, s));
+    oim[i] = __fsub_rn(__fmul_rn(y, c), __fmul_rn(x, s));
+  }
+}
 
 __device__ __forceinline__ float block_sum(float v, float* s_buf) {
   s_buf[threadIdx.x] = v;
@@ -64,6 +93,21 @@ expectation_final_kernel(const float* __restrict__ partial,
 }
 
 }  // namespace
+
+// re, im, cutv, ore, oim (B, dim) f32; gamma (B,) f32; tile divides dim.
+PQ_EXPORT int pq_apply_phase(const void* re, const void* im, const void* cutv,
+                             const void* gamma, void* ore, void* oim,
+                             int64_t batch, int64_t dim, int64_t tile,
+                             void* stream) {
+  const int64_t blocks_per_row = dim / tile;
+  apply_phase_kernel<<<static_cast<unsigned>(batch * blocks_per_row),
+                       pq::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(re), static_cast<const float*>(im),
+      static_cast<const float*>(cutv), static_cast<const float*>(gamma),
+      static_cast<float*>(ore), static_cast<float*>(oim), blocks_per_row,
+      tile);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // re, im, cutv (B, dim) f32; partial (B, parts) f32 temporary; out (B,) f32.
 // parts divides dim.

@@ -8,14 +8,36 @@ XOR form. `cutvals` scores every state x < 2^n (the Pallas ``_kernel``,
 table names (``_at_kernel``, ``cutvals.py:108-166``), the layout-A/B cut
 tables of the sharded statevector. Both kernels are ``csrc/cutvals.cu``;
 their plain versions are `ref.cutvals` and `ref.cutvals_at`.
+
+Knobs (through `tuning.param`, keys ``cutvals`` and ``cutvals_at``):
+``tile_b``, states per block, and ``edge_chunk``, edges staged in shared
+memory at a time. Neither changes a bit of the result: every state adds
+its edges in edge order.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref, tuning
+
+TILE_B = 256  # states per block: one per thread of a 256-thread block
+EDGE_CHUNK = 1024  # edges staged at a time; the shared arrays hold 1024
+MAX_TILE_B = 2048  # 8 states per thread
+
+
+def knobs(op: str, dim: int, device) -> tuple[int, int]:
+    """(tile_b, edge_chunk) for ``op`` over ``dim`` states a row; raises on
+    a value the kernel does not take (no clamp: the kernel masks the
+    ragged end of a row itself)."""
+    tile_b = tuning.param(op, dim, "tile_b", TILE_B, device)
+    chunk = tuning.param(op, dim, "edge_chunk", EDGE_CHUNK, device)
+    if not tuning.is_pow2(tile_b) or not 32 <= tile_b <= MAX_TILE_B:
+        raise ValueError(f"{op} tile_b {tile_b} outside the kernel's range: "
+                         f"a power of two in [32, {MAX_TILE_B}]")
+    if not 1 <= chunk <= EDGE_CHUNK:
+        raise ValueError(f"{op} edge_chunk {chunk} outside [1, {EDGE_CHUNK}]")
+    return tile_b, chunk
 
 
 def cutvals(n: int, edges: torch.Tensor, weights: torch.Tensor,
@@ -33,10 +55,11 @@ def cutvals(n: int, edges: torch.Tensor, weights: torch.Tensor,
     weights = weights.contiguous()
     _build.require(edges, "edges", torch.int32, (b, e, 2), edges.device)
     _build.require(weights, "weights", torch.float32, (b, e), edges.device)
+    tile_b, chunk = knobs("cutvals", 2**n, edges.device)
     out = torch.empty((b, 2**n), dtype=torch.float32, device=edges.device)
     rc = _build.entry("cutvals")(
         edges.data_ptr(), weights.data_ptr(), out.data_ptr(), b, e, n,
-        _build.stream(edges.device))
+        tile_b, chunk, _build.stream(edges.device))
     _build.check(rc, "cutvals")
     _build.count_launch("cutvals")
     return out
@@ -59,10 +82,11 @@ def cutvals_at(idx: torch.Tensor, edges: torch.Tensor, weights: torch.Tensor,
     _build.require(idx, "idx", torch.int32, (s, width), dev)
     _build.require(edges, "edges", torch.int32, (b, e, 2), dev)
     _build.require(weights, "weights", torch.float32, (b, e), dev)
+    tile_b, chunk = knobs("cutvals_at", idx.numel(), dev)
     out = torch.empty((b * s, width), dtype=torch.float32, device=dev)
     rc = _build.entry("cutvals_at")(
         idx.data_ptr(), edges.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        b, s, width, e, _build.stream(dev))
+        b, s, width, e, tile_b, chunk, _build.stream(dev))
     _build.check(rc, "cutvals_at")
     _build.count_launch("cutvals_at")
     return out

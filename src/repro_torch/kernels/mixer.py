@@ -7,16 +7,32 @@ The counterpart of ``repro/kernels/mixer.py``, with one β per batch row.
 axis of a (B, R, 2^k) view (``_mixer_kernel``, launched by
 ``mixer_group_matmul``); its kernel is the phase-free instance of
 ``csrc/fused_layer.cu``. Their plain versions are `ref.mixer_group` and
-`mixer_group_trailing_plain`.
+`mixer_group_trailing_plain`. `apply_mixer_bits_relayout` is the path the
+strided kernel replaced (permute the group to the trailing axis, run the
+trailing kernel, permute back), kept as the sweep's yardstick.
+
+Knobs (through `tuning.param`): ``tile_y``, lanes along Y per strided
+block (key ``mixer_strided``); ``row_tile`` for the trailing kernel (key
+``mixer_matmul``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref, tuning
+from repro_torch.kernels.fused_layer import TILE_AMPS, row_tile
 from repro_torch.kernels.ref import popcount
+
+
+def tile_y(x: int, y: int, k: int, device) -> int:
+    """Lanes along Y per strided block: TILE_AMPS >> k clamped to Y with
+    tuning off; a tuned value must keep 2^k * tile_y within TILE_AMPS."""
+    want = tuning.param("mixer_strided", x * y, "tile_y", TILE_AMPS >> k, device)
+    if not tuning.is_pow2(want) or want << k > TILE_AMPS:
+        raise ValueError(f"mixer_strided tile_y {want} outside the kernel's "
+                         f"range: a power of two with 2^{k} * tile_y <= {TILE_AMPS}")
+    return tuning.clamp_tile(y, want)
 
 
 def rx_group_mats(beta: torch.Tensor, k: int):
@@ -62,11 +78,12 @@ def mixer_group_strided(re3: torch.Tensor, im3: torch.Tensor,
         _build.require(t, name, torch.float32, (b, x, dk, y), dev)
     beta = beta.to(torch.float32).contiguous()
     _build.require(beta, "beta", torch.float32, (b,), dev)
+    ty = tile_y(x, y, k, dev)
     ore = torch.empty_like(re3)
     oim = torch.empty_like(im3)
     rc = _build.entry("mixer")(
         re3.data_ptr(), im3.data_ptr(), beta.data_ptr(), ore.data_ptr(),
-        oim.data_ptr(), b, x, k, y, _build.stream(dev))
+        oim.data_ptr(), b, x, k, y, ty, _build.stream(dev))
     _build.check(rc, "mixer_group_strided")
     _build.count_launch("mixer_group_strided")
     return ore, oim
@@ -93,11 +110,12 @@ def mixer_group_trailing(re3: torch.Tensor, im3: torch.Tensor,
         _build.require(t, name, torch.float32, (b, r, dk), dev)
     beta = beta.to(torch.float32).contiguous()
     _build.require(beta, "beta", torch.float32, (b,), dev)
+    tile_rows = row_tile("mixer_matmul", r, k, dev)
     ore = torch.empty_like(re3)
     oim = torch.empty_like(im3)
     rc = _build.entry("mixer_trailing")(
         re3.data_ptr(), im3.data_ptr(), beta.data_ptr(), ore.data_ptr(),
-        oim.data_ptr(), b, r, k, _build.stream(dev))
+        oim.data_ptr(), b, r, k, tile_rows, _build.stream(dev))
     _build.check(rc, "mixer_group_trailing")
     _build.count_launch("mixer_group_trailing")
     return ore, oim
@@ -121,3 +139,25 @@ def apply_mixer_bits(re: torch.Tensor, im: torch.Tensor, n: int, lo_bit: int,
         ore, oim = mixer_group_strided(re.reshape(shape), im.reshape(shape),
                                        beta, nbits)
     return ore.reshape(b, -1), oim.reshape(b, -1)
+
+
+def apply_mixer_bits_relayout(re: torch.Tensor, im: torch.Tensor, n: int,
+                              lo_bit: int, nbits: int, beta: torch.Tensor):
+    """`apply_mixer_bits` by relayout: permute the group to the trailing
+    axis, run the trailing kernel on (B, X·Y, 2^nbits), permute back (two
+    extra copies of both planes). The yardstick the strided kernel is
+    measured against; the same unitary."""
+    b = re.shape[0]
+    x, dk, y = 2 ** (n - lo_bit - nbits), 2**nbits, 2**lo_bit
+    if y == 1:
+        return apply_mixer_bits(re, im, n, lo_bit, nbits, beta)
+
+    def to_trailing(t):
+        return t.view(b, x, dk, y).transpose(2, 3).reshape(b, x * y, dk)
+
+    ore, oim = mixer_group_trailing(to_trailing(re), to_trailing(im), beta, nbits)
+
+    def back(t):
+        return t.view(b, x, y, dk).transpose(2, 3).reshape(b, -1)
+
+    return back(ore), back(oim)

@@ -17,18 +17,19 @@ same kernels at negated angles:
 - `apply_mixer_bits` (``_mixer_bits_vjp``, ops.py:302-330): the group at −β.
 - `expectation` (``_expectation_vjp``, ops.py:467-486): closed form.
 - `apply_mixer` (ops.py:333-340): the chain of `apply_mixer_bits` groups.
+- `apply_phase` (``_phase_vjp``, ops.py:238-273): the same kernel at −γ
+  on the cotangent, then ∂γ and ∂cutv in closed form.
 
-`cutvals` and `cutvals_at` are forward only: no solve path differentiates
-the cut tables.
+`cutvals`, `cutvals_at` and `cut_batch_dense` are forward only: no path
+differentiates them (as in the reference).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cutbatch, fused_layer, mixer, phase
 from repro_torch.kernels import cutvals as cutvals_mod
-from repro_torch.kernels import fused_layer, mixer, phase
 
 # every kernel wrapper, by the name its launches are counted under
 KERNELS = (
@@ -38,6 +39,8 @@ KERNELS = (
     "mixer_group_strided",
     "mixer_group_trailing",
     "expectation",
+    "apply_phase",
+    "cut_batch_dense",
 )
 
 
@@ -59,6 +62,39 @@ def cutvals_at(idx, edges, weights, linear=None):
     """(B·S, L) objective values of every edge row at the basis states of
     the (S, L) int32 table ``idx``; ``linear`` (B, n) adds per-vertex terms."""
     return cutvals_mod.cutvals_at(idx, edges, weights, linear)
+
+
+def cut_batch_dense(spins, adjacency, total_weight):
+    """(B,) cut values of ±1 spin rows (B, V) through the dense (V, V)
+    adjacency; forward only."""
+    return cutbatch.cut_batch_dense(spins, adjacency, total_weight)
+
+
+# ---------------------------------------------------------------------------
+# the cost phase: its transpose is the same rotation at −γ
+# ---------------------------------------------------------------------------
+
+class _Phase(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, re, im, cutv, gamma):
+        ctx.save_for_backward(re, im, cutv, gamma)
+        return phase.apply_phase(re, im, cutv, gamma)
+
+    @staticmethod
+    def backward(ctx, d_ore, d_oim):
+        re, im, cutv, gamma = ctx.saved_tensors
+        g_re, g_im = phase.apply_phase(d_ore.contiguous(), d_oim.contiguous(),
+                                       cutv, -gamma)
+        t = im * g_re - re * g_im
+        d_gamma = torch.sum(cutv * t, dim=-1)
+        d_cutv = gamma[:, None] * t if ctx.needs_input_grad[2] else None
+        return g_re, g_im, d_cutv, d_gamma
+
+
+def apply_phase(re, im, cutv, gamma):
+    """e^{-iγc}ψ on (B, 2^n) planes, γ (B,); differentiable in every
+    argument."""
+    return _Phase.apply(re, im, cutv, gamma)
 
 
 # ---------------------------------------------------------------------------

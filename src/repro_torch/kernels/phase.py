@@ -1,26 +1,68 @@
-"""Expectation of the diagonal objective: CUDA kernel and wrapper.
+"""The diagonal cost layer and its expectation: CUDA kernels and wrappers.
 
-The counterpart of ``repro/kernels/phase.py::expectation``: Σ_x |ψ_x|²·c_x
-per batch row, (B, 2^n) planes → (B,). The kernel is ``csrc/phase.cu``,
-a deterministic two-pass reduction (no atomics); its plain version is
-`ref.expectation`. The elementwise ``apply_phase`` kernel of the JAX
-package is not ported: nothing on the solve path calls it (ROADMAP.md).
+The counterpart of ``repro/kernels/phase.py``, batched over (B, 2^n)
+planes. `apply_phase` is e^{-iγc}ψ with one γ per row (the Pallas
+``_phase_kernel``); `expectation` is Σ_x |ψ_x|²·c_x per row, (B,) (the
+Pallas ``_exp_kernel``), a deterministic two-pass reduction with no
+atomics. Both kernels are ``csrc/phase.cu``; their plain versions are
+`ref.apply_phase` and `ref.expectation`.
+
+Launch geometry resolves through `tuning.param`; with tuning off (the
+default) it is the built-in one below.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref, tuning
 
-ELEMS_PER_BLOCK = 16384  # pass-1 chunk target; at most MAX_PARTS partials a row
-MAX_PARTS = 1024
+TILE = 4096  # apply_phase: amplitudes per block
+ELEMS_PER_BLOCK = 16384  # expectation: pass-1 chunk target
+MAX_PARTS = 1024  # expectation: at most this many partials a row by default
+MIN_TILE = 256  # both: at least one amplitude per thread of a block
 
 
-def num_parts(dim: int) -> int:
-    """Pass-1 blocks per row: a power of two dividing ``dim``."""
-    return max(1, min(MAX_PARTS, dim // ELEMS_PER_BLOCK))
+def default_expectation_tile(dim: int) -> int:
+    """Amplitudes per pass-1 block with tuning off: ELEMS_PER_BLOCK, or
+    more where a row would otherwise need over MAX_PARTS partials."""
+    return max(ELEMS_PER_BLOCK, dim // MAX_PARTS)
+
+
+def _tile(op: str, dim: int, default: int, device) -> int:
+    """The knob ``tile`` of ``op`` for a row of ``dim`` amplitudes: a power
+    of two, clamped to the row, at least MIN_TILE (or the whole row)."""
+    if dim & (dim - 1):
+        raise ValueError(f"state width {dim} is not a power of two")
+    want = tuning.param(op, dim, "tile", default, device)
+    if not tuning.is_pow2(want):
+        raise ValueError(f"{op} tile {want} is not a power of two")
+    tile = tuning.clamp_tile(dim, want)
+    if tile < min(MIN_TILE, dim):
+        raise ValueError(f"{op} tile {want} below {MIN_TILE} amplitudes")
+    return tile
+
+
+def apply_phase(re: torch.Tensor, im: torch.Tensor, cutv: torch.Tensor,
+                gamma: torch.Tensor):
+    """(re, im) ← e^{-iγc}(re, im) on (B, 2^n) planes, γ (B,)."""
+    if not _build.on_cuda(re):
+        return ref.apply_phase(re, im, cutv, gamma)
+    b, dim = re.shape
+    dev = re.device
+    tile = _tile("apply_phase", dim, TILE, dev)
+    for t, name in ((re, "re"), (im, "im"), (cutv, "cutv")):
+        _build.require(t, name, torch.float32, (b, dim), dev)
+    gamma = gamma.to(torch.float32).contiguous()
+    _build.require(gamma, "gamma", torch.float32, (b,), dev)
+    ore = torch.empty_like(re)
+    oim = torch.empty_like(im)
+    rc = _build.entry("apply_phase")(
+        re.data_ptr(), im.data_ptr(), cutv.data_ptr(), gamma.data_ptr(),
+        ore.data_ptr(), oim.data_ptr(), b, dim, tile, _build.stream(dev))
+    _build.check(rc, "apply_phase")
+    _build.count_launch("apply_phase")
+    return ore, oim
 
 
 def expectation(re: torch.Tensor, im: torch.Tensor,
@@ -29,15 +71,14 @@ def expectation(re: torch.Tensor, im: torch.Tensor,
     if not _build.on_cuda(re):
         return ref.expectation(re, im, cutv)
     b, dim = re.shape
-    if dim & (dim - 1):
-        raise ValueError(f"state width {dim} is not a power of two")
     dev = re.device
+    tile = _tile("expectation", dim, default_expectation_tile(dim), dev)
     for t, name in ((re, "re"), (im, "im"), (cutv, "cutv")):
         _build.require(t, name, torch.float32, (b, dim), dev)
-    parts = num_parts(dim)
+    parts = dim // tile
     partial = torch.empty((b, parts), dtype=torch.float32, device=dev)
     out = torch.empty((b,), dtype=torch.float32, device=dev)
-    rc = _build.entry("phase")(
+    rc = _build.entry("expectation")(
         re.data_ptr(), im.data_ptr(), cutv.data_ptr(), partial.data_ptr(),
         out.data_ptr(), b, dim, parts, _build.stream(dev))
     _build.check(rc, "expectation")

@@ -127,3 +127,16 @@ def apply_mixer(re, im, n: int, beta, group: int = 7):
 def expectation(re, im, cutv):
     """<psi| diag(c) |psi> per row: (B,)."""
     return torch.sum((re * re + im * im) * cutv, dim=-1)
+
+
+def cut_batch_dense(spins: torch.Tensor, adjacency: torch.Tensor, total_weight):
+    """Cut values of ±1 spin rows through the dense adjacency: (B,) f32.
+
+    spins (B, V) f32 in {-1, +1}, adjacency (V, V) f32 symmetric,
+    total_weight Σw (a float or a one-element tensor).
+    cut = (W_total - 0.5 * s^T A s) / 2   [0.5 because A counts each edge twice]
+    """
+    quad = torch.einsum("bi,ij,bj->b", spins, adjacency, spins)
+    if isinstance(total_weight, torch.Tensor):
+        total_weight = total_weight.reshape(()).to(quad)
+    return (total_weight - 0.5 * quad) / 2.0

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fused_layer, mixer, ops, phase, ref
+from repro_torch.kernels import cutbatch, fused_layer, mixer, ops, phase, ref, tuning
 from repro_torch.kernels import cutvals as cutvals_mod
 
 pytestmark = pytest.mark.cuda
@@ -124,7 +124,8 @@ def test_layer_counts_one_launch_per_kernel_call(cuda_device):
     ops.apply_mixer(re, im, n, b, 7)  # the trailing group, then 2 strided
     assert ops.launch_counts() == {
         "cutvals": 0, "cutvals_at": 0, "fused_phase_mixer_group": 1,
-        "mixer_group_strided": 4, "mixer_group_trailing": 1, "expectation": 1}
+        "mixer_group_strided": 4, "mixer_group_trailing": 1, "expectation": 1,
+        "apply_phase": 0, "cut_batch_dense": 0}
 
 
 @pytest.mark.parametrize("schedule", ["faithful", "alternating"])
@@ -155,3 +156,52 @@ def test_sharded_qaoa_on_the_card_matches_the_cpu(cuda_device, schedule):
     mask = (1 << 12) - 1
     assert ({min(int(x), int(x) ^ mask) for x in card.bitstrings.cpu()}
             == {min(int(x), int(x) ^ mask) for x in cpu.bitstrings})
+
+
+@pytest.mark.parametrize("n", [4, 10, 15])
+def test_apply_phase_kernel_matches_plain(cuda_device, n):
+    re, im, cutv, g, _ = _inputs(n, 3, 70 + n, cuda_device)
+    got = phase.apply_phase(re, im, cutv, g)
+    want = ref.apply_phase(re, im, cutv, g)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("b,v", [(37, 48), (300, 300), (5, 129)])
+def test_cut_batch_dense_kernel_equals_plain(cuda_device, b, v):
+    """Unweighted: exact against the plain version and the edge-list cut;
+    weighted: within 1e-5 of Σ|w|. B and V divide no tile."""
+    from repro_torch.core.graph import Graph, cut_value_batch
+
+    rng = np.random.default_rng(b + v)
+    s = torch.as_tensor((rng.integers(0, 2, (b, v)) * 2 - 1).astype(np.float32),
+                        device=cuda_device)
+    x = ((s + 1) / 2).to(torch.int32)
+    for g in (Graph.erdos_renyi(v, 0.3, seed=v),
+              Graph.erdos_renyi_weighted(v, 0.3, seed=v)):
+        adj = g.dense_adjacency(cuda_device)
+        w = g.total_weight().to(cuda_device)
+        got = cutbatch.cut_batch_dense(s, adj, w)
+        tol = 1e-5 * float(g.weights.abs().sum())
+        for want in (ref.cut_batch_dense(s, adj, w), cut_value_batch(g, x)):
+            if bool(torch.all(g.weights == torch.round(g.weights))):
+                assert torch.equal(got, want)
+            else:
+                torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+def test_tile_candidates_give_the_same_bits(cuda_device):
+    """A knob changes the launch geometry, never the math: the elementwise
+    phase and the strided butterflies give the same bits under two tiles."""
+    n = 14
+    re, im, cutv, g, b = _inputs(n, 3, 5, cuda_device)
+    v4 = (3, 2 ** (n - 14), 2**7, 2**7)
+    runs = []
+    for tile, tile_y in ((4096, 32), (256, 4)):
+        table = {tuning.cache_key("apply_phase", 2**n): {"tile": tile},
+                 tuning.cache_key("mixer_strided", 2**7): {"tile_y": tile_y}}
+        with tuning.using_overrides(table):
+            runs.append(phase.apply_phase(re, im, cutv, g)
+                        + mixer.mixer_group_strided(re.view(v4), im.view(v4), b, 7))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)

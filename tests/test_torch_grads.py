@@ -171,3 +171,22 @@ def test_layer_backward_leaves_cutv_gradient_out_when_not_needed():
         x, ["re", "im", "gamma", "beta"])
     for a, b in zip([with_cutv[i] for i in (0, 1, 3, 4)], without):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_apply_phase_grads_match_jax(n):
+    """The phase rule (the same rotation at −γ on the cotangent, then
+    d_γ = Σ cutv·t, d_cutv = γ·t) against ``jax.grad`` through the JAX
+    ``custom_vjp``: one rotation and one 2^n-term sum, so rtol 1e-5 (atol
+    1e-6 for entries that cancel to near zero)."""
+    names = ["re", "im", "cutv", "gamma"]
+    x = _inputs(n, seed=40 + n)
+    got = _torch_grads(
+        lambda a: ops.apply_phase(a["re"], a["im"], a["cutv"], a["gamma"]), x, names)
+    grad_fn = _jax_grad_fn(
+        lambda a: jax_ops.apply_phase(a["re"], a["im"], a["cutv"], a["gamma"]), names)
+    for row in range(B):
+        want = _jax_grads(grad_fn, x, names, row)
+        for name, g, w in zip(names, got, want):
+            np.testing.assert_allclose(g[row], w, rtol=1e-5, atol=1e-6,
+                                       err_msg=f"d_{name}, row {row}")

@@ -25,7 +25,7 @@ from repro.kernels import fused_layer as jax_fused
 from repro.kernels import mixer as jax_mixer
 from repro.kernels import phase as jax_phase
 from repro.kernels import ref as jax_ref
-from repro_torch.kernels import _build, fused_layer, mixer, ops, phase, ref
+from repro_torch.kernels import _build, cutbatch, fused_layer, mixer, ops, phase, ref
 from repro_torch.kernels import cutvals as cutvals_mod
 
 STATE_ATOL = 2e-5
@@ -261,3 +261,128 @@ def test_wrappers_reject_other_devices():
     meta = torch.zeros((1, 4), device="meta")
     with pytest.raises(ValueError, match="no kernel or plain path"):
         phase.expectation(meta, meta, meta)
+
+
+# ---------------------------------------------------------------------------
+# the tuning slice: apply_phase, cut_batch_dense, the relayout path, and the
+# graph helpers that feed them
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [6, 9, 10])
+def test_apply_phase_plain_matches_pallas_and_jax_ref(n):
+    """Per-row γ against the Pallas kernel row by row and the JAX ref:
+    an elementwise rotation of O(1) amplitudes, so atol 1e-6."""
+    from repro.kernels import phase as jax_phase_k
+
+    re, im, cutv, gamma, _ = _state(n, seed=400 + n)
+    got = phase.apply_phase(_t(re), _t(im), _t(cutv), _t(gamma))
+    via_ops = ops.apply_phase(_t(re), _t(im), _t(cutv), _t(gamma))
+    for g, o in zip(got, via_ops):
+        assert torch.equal(g, o)
+    for r in range(B):
+        args = (jnp.asarray(re[r]), jnp.asarray(im[r]), jnp.asarray(cutv[r]),
+                jnp.float32(gamma[r]))
+        for want in (jax_phase_k.apply_phase(*args, interpret=True), _jphase(*args)):
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g[r].numpy(), np.asarray(w), atol=1e-6)
+
+
+def _spins(b, v, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 2, (b, v)) * 2 - 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("v,b", [(48, 37), (50, 64)])
+def test_cut_batch_dense_plain_equals_pallas_on_unweighted_graphs(v, b):
+    """V and B divide no tile; ±1 spins and unit weights sum to integers
+    below 2^24, so the plain version, the Pallas kernel, the JAX ref and
+    the edge-list cut agree exactly."""
+    from repro.core.graph import Graph as JGraph, cut_value_batch as jcut_batch
+    from repro.kernels import cutbatch as jax_cutbatch
+    from repro_torch.core import graph as tgraph
+
+    s = _spins(b, v, seed=v)
+    jg = JGraph.erdos_renyi(v, 0.3, seed=v)
+    tg = tgraph.Graph.erdos_renyi(v, 0.3, seed=v)
+    adj = tg.dense_adjacency()
+    wtot = tg.total_weight()
+    got = ops.cut_batch_dense(_t(s), adj, wtot).numpy()
+    jadj = jg.dense_adjacency()
+    jw = jg.total_weight()
+    np.testing.assert_array_equal(got, np.asarray(jax_cutbatch.cut_batch_dense(
+        jnp.asarray(s), jadj, jw, interpret=True)))
+    np.testing.assert_array_equal(got, np.asarray(jax_ref.cut_batch_dense(
+        jnp.asarray(s), jadj, jw)))
+    x = ((s + 1) / 2).astype(np.int32)
+    np.testing.assert_array_equal(got, tgraph.cut_value_batch(tg, _t(x)).numpy())
+    np.testing.assert_array_equal(got, np.asarray(jcut_batch(jg, jnp.asarray(x))))
+
+
+def test_cut_batch_dense_plain_on_weighted_graph_within_tolerance():
+    """Real weights: the sums round, so within 1e-5 · Σ|w|."""
+    from repro.core.graph import Graph as JGraph
+    from repro.kernels import cutbatch as jax_cutbatch
+    from repro_torch.core import graph as tgraph
+
+    v, b = 50, 40
+    s = _spins(b, v, seed=11)
+    tg = tgraph.Graph.erdos_renyi_weighted(v, 0.3, seed=4)
+    jg = JGraph.erdos_renyi_weighted(v, 0.3, seed=4)
+    got = cutbatch.cut_batch_dense(_t(s), tg.dense_adjacency(), float(tg.total_weight()))
+    want = jax_cutbatch.cut_batch_dense(jnp.asarray(s), jg.dense_adjacency(),
+                                        float(jg.total_weight()), interpret=True)
+    scale = float(tg.weights.abs().sum())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5 * scale)
+    exact = tgraph.cut_value_batch(tg, _t(((s + 1) / 2).astype(np.int32)))
+    np.testing.assert_allclose(got.numpy(), exact.numpy(), rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_dense_adjacency_and_cut_value_batch_match_jax(weighted):
+    from repro.core import graph as jgraph
+    from repro_torch.core import graph as tgraph
+
+    make = "erdos_renyi_weighted" if weighted else "erdos_renyi"
+    jg = getattr(jgraph.Graph, make)(30, 0.25, seed=5, pad_to=120)
+    tg = getattr(tgraph.Graph, make)(30, 0.25, seed=5, pad_to=120)
+    np.testing.assert_array_equal(tg.dense_adjacency().numpy(),
+                                  np.asarray(jg.dense_adjacency()))
+    x = np.random.default_rng(6).integers(0, 2, (9, 30)).astype(np.int32)
+    # unit weights sum exactly; real ones round in each framework's order
+    atol = 1e-5 * float(tg.weights.abs().sum()) if weighted else 0.0
+    np.testing.assert_allclose(tgraph.cut_value_batch(tg, _t(x)).numpy(),
+                               np.asarray(jgraph.cut_value_batch(jg, jnp.asarray(x))),
+                               rtol=0, atol=atol)
+    jp = jgraph.Problem.mis(jgraph.Graph.erdos_renyi(30, 0.25, seed=5))
+    tp = tgraph.Problem.mis(tgraph.Graph.erdos_renyi(30, 0.25, seed=5))
+    np.testing.assert_allclose(
+        tgraph.problem_value_batch(tp, _t(x)).numpy(),
+        np.asarray(jgraph.problem_value_batch(jp, jnp.asarray(x))), atol=1e-5)
+
+
+@pytest.mark.parametrize("n,lo,k", [(9, 2, 7), (10, 5, 3), (6, 0, 3)])
+def test_mixer_relayout_plain_matches_pallas_relayout(n, lo, k):
+    re, im, _, _, beta = _state(n, seed=500 + n + lo)
+    got = mixer.apply_mixer_bits_relayout(_t(re), _t(im), n, lo, k, _t(beta))
+    strided = mixer.apply_mixer_bits(_t(re), _t(im), n, lo, k, _t(beta))
+    for r in range(B):
+        want = jax_mixer.apply_mixer_bits_relayout(
+            jnp.asarray(re[r]), jnp.asarray(im[r]), n, lo, k,
+            jnp.float32(beta[r]), interpret=True)
+        for g, s, w in zip(got, strided, want):
+            np.testing.assert_allclose(g[r].numpy(), np.asarray(w), atol=STATE_ATOL)
+            np.testing.assert_allclose(g[r].numpy(), s[r].numpy(), atol=STATE_ATOL)
+
+
+def test_new_ops_on_cpu_launch_nothing(monkeypatch):
+    def no_build(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA build")
+
+    monkeypatch.setattr(_build, "entry", no_build)
+    monkeypatch.setattr(_build, "build_all", no_build)
+    ops.reset_launch_counts()
+    re, im, cutv, gamma, _ = (_t(a) for a in _state(6, seed=8))
+    ops.apply_phase(re, im, cutv, gamma)
+    ops.cut_batch_dense(_t(_spins(4, 10, 1)), torch.ones((10, 10)), 5.0)
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+    assert {"apply_phase", "cut_batch_dense"} <= set(ops.KERNELS)
