@@ -105,7 +105,7 @@ class _Sweeper:
                            else DEFAULT_CARD)
         self.rows, self.entries = [], {}
 
-    def sweep(self, op, dim, call, candidates, flops, nbytes, shape):
+    def sweep(self, op, dim, call, candidates, flops, nbytes, shape, unit="f32"):
         """Time every candidate (the default first); one row per
         (op, bucket). ``check(op, cand, out, default_out)`` sees every
         non-default candidate's output beside the default's."""
@@ -144,10 +144,10 @@ class _Sweeper:
             "candidates": len(candidates),
             "flops": flops,
             "bytes_accessed": nbytes,
-            "model_bound_s": kernel_bound_s(flops, nbytes, self.bound_card),
+            "model_bound_s": kernel_bound_s(flops, nbytes, self.bound_card, unit),
             # a CPU time against the card's bound would be no device metric
             "achieved_frac": (achieved_fraction(flops, nbytes, tuned_s,
-                                                self.bound_card)
+                                                self.bound_card, unit)
                               if on_card else None),
             "derived": f"{cfg_str};default_s={default_s:.3e};bucket={bucket}",
         })
@@ -290,9 +290,10 @@ def _sweep_cutvals_at(sw: _Sweeper, shapes: Shapes):
     idx = engine.index_tables(engine.ShardedLayout(n=n, axis=axis), dev)[0]
     m = idx.numel()
     real_edges = int((weights != 0).sum())
+    cands = [{"tile_b": t} for t in (cutvals.AT_TILE_B, 256, 512, 2048)]
     sw.sweep("cutvals_at", m,
-             lambda: cutvals.cutvals_at(idx, edges, weights),
-             _cutvals_candidates(), flops=2.0 * m * real_edges,
+             lambda: cutvals.cutvals_at(idx, edges, weights, n_bits=n),
+             _dedup(cands), flops=2.0 * m * real_edges,
              nbytes=4.0 * m + 4.0 * len(subs) * m + 12.0 * weights.numel(),
              shape=f"idx {tuple(idx.shape)} x {len(subs)} edge rows of {n} qubits")
 
@@ -313,11 +314,12 @@ def _sweep_cut_batch_dense(sw: _Sweeper, shapes: Shapes):
         cands = [{"batch_tile": cutbatch.BATCH_TILE, "k_chunk": cutbatch.K_CHUNK}]
         cands += [{"batch_tile": bt, "k_chunk": kc}
                   for bt in cutbatch.BATCH_TILES for kc in cutbatch.K_CHUNKS]
+        # unit weights: one nonzero bf16 plane, one product on the tensor cores
         sw.sweep("cut_batch_dense", v,
                  lambda: cutbatch.cut_batch_dense(spins, adj, wtot),
-                 _dedup(cands), flops=2.0 * b * v * v + 3.0 * b * v,
+                 _dedup(cands), flops=2.0 * b * v * v,
                  nbytes=4.0 * (b * v + v * v + b),
-                 shape=f"({b}, {v}) G({v}, {p}, seed {seed})")
+                 shape=f"({b}, {v}) G({v}, {p}, seed {seed})", unit="bf16_tensor")
         del spins, adj
 
 

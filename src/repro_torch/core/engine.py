@@ -137,11 +137,12 @@ def cut_table(layout: ShardedLayout, edges, weights, linear=None) -> CutTable:
     schedule visits; edges (B, E, 2), weights (B, E), ``linear`` (B, n).
     (The flat path's table is `ops.cutvals`.)"""
     idx_a, idx_b = index_tables(layout, edges.device)
-    cutv_a = ops.cutvals_at(idx_a, edges, weights, linear)
+    n = layout.n  # every index lies below 2^n: no read of idx.max()
+    cutv_a = ops.cutvals_at(idx_a, edges, weights, linear, n_bits=n)
     if layout.schedule == "faithful":
         return CutTable(cutv_a, idx_a)
-    return CutTable(cutv_a, idx_a, ops.cutvals_at(idx_b, edges, weights, linear),
-                    idx_b)
+    return CutTable(cutv_a, idx_a,
+                    ops.cutvals_at(idx_b, edges, weights, linear, n_bits=n), idx_b)
 
 
 def init_state(layout: Layout, batch: int, device):

@@ -8,8 +8,9 @@ file and the compiler flags: an edited source gets a fresh directory, an
 unchanged one is loaded as built. Nothing here runs at import time.
 
 A source may export more than one entry point (``cutvals.cu`` has the
-full-range and the indexed form); each entry point has its own launch
-count in `launches`, which its wrapper bumps once per launch.
+full-range form, the indexed form and its table pass; ``cutbatch.cu`` the
+split pass and the product). Each wrapper bumps its op's count in
+`launches` once per call that launches its kernels.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("cutbatch", "cutvals", "fused_layer", "mixer", "phase")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 P = ctypes.c_void_p
@@ -37,11 +38,15 @@ I32 = ctypes.c_int
 # pointers and the stream as void*, sizes as int64/int; each returns
 # cudaGetLastError() after its launch
 SIGNATURES = {
+    "cut_batch_split": ("cutbatch", "pq_cut_batch_split",
+                        [P, P, P, I64, I64, I64, P]),
     "cut_batch_dense": ("cutbatch", "pq_cut_batch_dense",
-                        [P, P, P, P, P, I64, I64, I32, I32, P]),
+                        [P, P, P, P, P, P, P, I64, I64, I64, I64, I32, I32, P]),
     "cutvals": ("cutvals", "pq_cutvals", [P, P, P, I64, I64, I32, I64, I64, P]),
+    "cutvals_tables": ("cutvals", "pq_cutvals_tables",
+                       [P, P, P, P, I64, I64, I32, P]),
     "cutvals_at": ("cutvals", "pq_cutvals_at",
-                   [P, P, P, P, I64, I64, I64, I64, I64, I64, P]),
+                   [P, P, P, P, I64, I64, I64, I32, I64, P]),
     "fused_layer": ("fused_layer", "pq_fused_phase_mixer",
                     [P, P, P, P, P, P, P, I64, I64, I32, I32, I64, P]),
     "mixer_trailing": ("fused_layer", "pq_mixer_trailing",
@@ -102,6 +107,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
     failed = []
     for name, (proc, tmp, so) in procs.items():
         log, _ = proc.communicate()
+        (out_dir / f"{name}.log").write_text(log)  # ptxas: registers, spills
         if proc.returncode != 0:
             failed.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
         else:
@@ -115,6 +121,13 @@ def build_all() -> dict[str, ctypes.CDLL]:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return _LIBS
+
+
+def ptxas_log(source: str) -> str:
+    """nvcc's output for ``csrc/<source>.cu`` (``-Xptxas=-v``: each kernel's
+    registers, shared memory and spill bytes) from the last build here."""
+    path = BUILD_ROOT / source_hash() / f"{source}.log"
+    return path.read_text() if path.exists() else ""
 
 
 def entry(name: str):

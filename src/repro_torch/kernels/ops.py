@@ -58,10 +58,11 @@ def cutvals(n: int, edges, weights, linear=None):
     return cutvals_mod.cutvals(n, edges, weights, linear)
 
 
-def cutvals_at(idx, edges, weights, linear=None):
+def cutvals_at(idx, edges, weights, linear=None, *, n_bits=None):
     """(B·S, L) objective values of every edge row at the basis states of
-    the (S, L) int32 table ``idx``; ``linear`` (B, n) adds per-vertex terms."""
-    return cutvals_mod.cutvals_at(idx, edges, weights, linear)
+    the (S, L) int32 table ``idx``; ``linear`` (B, n) adds per-vertex terms;
+    ``n_bits``: every index lies below 2^n_bits (None reads idx.max())."""
+    return cutvals_mod.cutvals_at(idx, edges, weights, linear, n_bits=n_bits)
 
 
 def cut_batch_dense(spins, adjacency, total_weight):

@@ -19,6 +19,7 @@ import torch
 # any int32 basis index is 0 for n <= 29. One appended row (v, 30, h_v) per
 # vertex makes the unchanged XOR kernel score quadratic + linear terms.
 VIRTUAL_BIT = 30
+CUTVALS_LO_BITS = 12  # the table design's split: lo = the low min(n, 12) bits
 
 
 def append_linear_rows(edges: torch.Tensor, weights: torch.Tensor,
@@ -70,6 +71,74 @@ def cutvals_at(idx: torch.Tensor, edges: torch.Tensor, weights: torch.Tensor,
         crossed = ((idx >> i) ^ (idx >> j)) & 1
         acc = acc + weights[:, e].view(b, 1, 1) * crossed.to(torch.float32)
     return acc.view(b * s, width)
+
+
+def cutvals_split_tables(edges: torch.Tensor, weights: torch.Tensor, n: int,
+                         l: int | None = None):
+    """The tables of the lookup form of `cutvals_at` for x < 2^n, split into
+    lo = its low l bits (default min(n, CUTVALS_LO_BITS)) and hi = the rest:
+    (T_lo (B, 2^l), T_hi (B, 2^(n-l)), D (B, 2^(n-l), l)) f32 with
+
+        c(x) = T_lo[lo] + T_hi[hi] + Σ_{j < l, bit j of lo set} D[hi, j].
+
+    Edge by edge, with a ⊕ b = a + b − 2ab: both ends in lo add
+    w·(bit_i ⊕ bit_j) to T_lo; both in hi to T_hi; i in hi and j in lo add
+    w·bit_i to T_hi and w·(1 − 2 bit_i) to D[·, j]; an end at a bit ≥ n
+    (the virtual bit 30 of a linear row, or any bit an index below 2^n
+    leaves clear) leaves w·bit of the other end, on its side. Each entry
+    adds its edges in edge order, as the CUDA table pass does, so the two
+    are equal bit for bit.
+    """
+    l = min(n, CUTVALS_LO_BITS) if l is None else l
+    h = n - l
+    b = edges.shape[0]
+    dev = edges.device
+    lo = torch.arange(2**l, dtype=torch.int64, device=dev)
+    hi = torch.arange(2**h, dtype=torch.int64, device=dev)
+    t_lo = torch.zeros((b, 2**l), dtype=torch.float32, device=dev)
+    t_hi = torch.zeros((b, 2**h), dtype=torch.float32, device=dev)
+    d = torch.zeros((b, 2**h, l), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    ee = edges.cpu().tolist()
+    for r in range(b):
+        for e in range(edges.shape[1]):
+            i, j = ee[r][e]
+            w = weights[r, e]
+            zi, zj = not 0 <= i < n, not 0 <= j < n
+            if i == j or (zi and zj):
+                continue
+            if zi or (not zj and i < l <= j):  # the zero or the hi end first
+                i, j = j, i
+            if zi or zj:  # w * bit_i
+                if i < l:
+                    t_lo[r] = t_lo[r] + torch.where((lo >> i) & 1 == 1, w, zero)
+                else:
+                    t_hi[r] = t_hi[r] + torch.where((hi >> (i - l)) & 1 == 1, w, zero)
+            elif i < l and j < l:
+                t_lo[r] = t_lo[r] + torch.where(((lo >> i) ^ (lo >> j)) & 1 == 1, w, zero)
+            elif j >= l:
+                t_hi[r] = t_hi[r] + torch.where(
+                    ((hi >> (i - l)) ^ (hi >> (j - l))) & 1 == 1, w, zero)
+            else:  # i in hi, j in lo
+                bi = (hi >> (i - l)) & 1 == 1
+                t_hi[r] = t_hi[r] + torch.where(bi, w, zero)
+                d[r, :, j] = d[r, :, j] + torch.where(bi, -w, w)
+    return t_lo, t_hi, d
+
+
+def cutvals_at_split(idx: torch.Tensor, tables, l: int | None = None) -> torch.Tensor:
+    """`cutvals_at` from the tables of `cutvals_split_tables`: (B·S, L) f32,
+    c = T_lo[lo] + T_hi[hi], then D[hi, j] for each set bit j of lo in
+    increasing j, as the CUDA expand kernel adds them."""
+    t_lo, t_hi, d = tables
+    l = d.shape[2] if l is None else l
+    b, (s, width) = t_lo.shape[0], idx.shape
+    x = idx.long()
+    lo, hi = x & (2**l - 1), x >> l
+    c = t_lo[:, lo] + t_hi[:, hi]  # (B, S, L)
+    for j in range(l):
+        c = torch.where(((lo >> j) & 1 == 1)[None], c + d[:, :, j][:, hi], c)
+    return c.reshape(b * s, width)
 
 
 def apply_phase(re, im, cutv, gamma):
@@ -137,6 +206,33 @@ def cut_batch_dense(spins: torch.Tensor, adjacency: torch.Tensor, total_weight):
     cut = (W_total - 0.5 * s^T A s) / 2   [0.5 because A counts each edge twice]
     """
     quad = torch.einsum("bi,ij,bj->b", spins, adjacency, spins)
+    return _cut_from_quad(quad, total_weight)
+
+
+def _cut_from_quad(quad, total_weight):
     if isinstance(total_weight, torch.Tensor):
         total_weight = total_weight.reshape(()).to(quad)
     return (total_weight - 0.5 * quad) / 2.0
+
+
+def split_bf16(a: torch.Tensor):
+    """(A₁, A₂, A₃) bf16 with A₁ + A₂ + A₃ = A exactly in f32:
+    A₁ = bf16(A), A₂ = bf16(A − A₁), A₃ = bf16(A − A₁ − A₂). Each residual
+    is exact in f32 and keeps at most 16, then 8 significant bits, so A₃
+    holds the rest exactly (above bf16's subnormal range); integers
+    |w| ≤ 256 give A₂ = A₃ = 0."""
+    a1 = a.to(torch.bfloat16)
+    r1 = a - a1.to(torch.float32)
+    a2 = r1.to(torch.bfloat16)
+    return a1, a2, (r1 - a2.to(torch.float32)).to(torch.bfloat16)
+
+
+def cut_batch_dense_split(spins: torch.Tensor, adjacency: torch.Tensor,
+                          total_weight) -> torch.Tensor:
+    """`cut_batch_dense` through the bf16 planes of `split_bf16`, as the
+    tensor-core kernel computes it: q = Σ_t s Aₜ sᵀ, one f32 product per
+    plane, the planes in order."""
+    quad = torch.zeros(spins.shape[0], dtype=torch.float32, device=spins.device)
+    for plane in split_bf16(adjacency):
+        quad = quad + torch.einsum("bi,ij,bj->b", spins, plane.to(torch.float32), spins)
+    return _cut_from_quad(quad, total_weight)

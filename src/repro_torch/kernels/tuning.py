@@ -47,7 +47,7 @@ TUNABLE_OPS = {
     "mixer_strided": ("tile_y",),
     "fused_layer": ("row_tile",),
     "cutvals": ("tile_b", "edge_chunk"),
-    "cutvals_at": ("tile_b", "edge_chunk"),
+    "cutvals_at": ("tile_b",),
     "cut_batch_dense": ("batch_tile", "k_chunk"),
 }
 

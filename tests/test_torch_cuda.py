@@ -7,8 +7,11 @@ H100 run them with::
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Small shapes; the main path's shapes are ``chip_smoke.py``'s. Tolerances
-as in tests/test_torch_kernels.py, plus exact cut values (the kernel adds
-in edge order, as the plain version does).
+as in tests/test_torch_kernels.py, plus exact cut values on integer
+weights (every sum is an exact integer); the table-lookup ``cutvals_at``
+and the tensor-core ``cut_batch_dense`` add real weights in another order
+than their plain versions, so there they are held to their stated
+tolerances and bitwise to their CPU mirrors.
 """
 
 import numpy as np
@@ -59,6 +62,10 @@ def test_cutvals_kernel_equals_plain(cuda_device, n):
 
 @pytest.mark.parametrize("n,d", [(6, 2), (10, 4), (13, 8)])
 def test_cutvals_at_kernel_equals_plain_on_both_views(cuda_device, n, d):
+    """The table-lookup kernel: bitwise on integer weights without and with
+    integer linear rows; with real linear rows within CUTVALS_AT_RTOL of
+    each edge row's Σ|w| + Σ|h| (the table order is not the edge order)
+    and bitwise equal to the CPU mirror of the table design."""
     from repro_torch.core import engine
     from repro_torch.core.axis import LocalAxis
 
@@ -69,12 +76,58 @@ def test_cutvals_at_kernel_equals_plain_on_both_views(cuda_device, n, d):
                         device=cuda_device)
     lin = torch.as_tensor(rng.standard_normal((3, n)).astype(np.float32),
                           device=cuda_device)
+    lin_int = torch.as_tensor(rng.integers(-3, 4, (3, n)).astype(np.float32),
+                              device=cuda_device)
     tables = engine.index_tables(engine.ShardedLayout(n=n, axis=LocalAxis(d)),
                                  cuda_device)
     for idx in tables:
-        for linear in (None, lin):
-            got = cutvals_mod.cutvals_at(idx, edges, w, linear)
-            assert torch.equal(got, ref.cutvals_at(idx, edges, w, linear))
+        for linear in (None, lin_int):
+            for n_bits in (None, n):
+                got = cutvals_mod.cutvals_at(idx, edges, w, linear, n_bits=n_bits)
+                assert torch.equal(got, ref.cutvals_at(idx, edges, w, linear))
+        got = cutvals_mod.cutvals_at(idx, edges, w, lin, n_bits=n)
+        want = ref.cutvals_at(idx, edges, w, lin)
+        scale = w.abs().sum(1) + lin.abs().sum(1)
+        err = (got - want).abs().view(3, -1).amax(1)
+        assert bool((err <= cutvals_mod.CUTVALS_AT_RTOL * scale).all())
+        e2, w2 = ref.append_linear_rows(edges, w, lin)
+        mirror = ref.cutvals_at_split(idx.cpu(), ref.cutvals_split_tables(e2.cpu(),
+                                                                          w2.cpu(), n))
+        assert torch.equal(got.cpu(), mirror)
+
+
+@pytest.mark.parametrize("n", [3, 12, 17])
+def test_cutvals_table_pass_equals_its_mirror(cuda_device, n):
+    rng = np.random.default_rng(n)
+    edges = torch.as_tensor(rng.integers(0, n, (2, 16, 2)).astype(np.int32))
+    w = torch.as_tensor(rng.standard_normal((2, 16)).astype(np.float32))
+    lin = torch.as_tensor(rng.standard_normal((2, n)).astype(np.float32))
+    got = cutvals_mod.split_tables(edges.to(cuda_device), w.to(cuda_device), n,
+                                   lin.to(cuda_device))
+    want = ref.cutvals_split_tables(*ref.append_linear_rows(edges, w, lin), n)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_cutvals_at_index_above_its_bits_traps(cuda_device, tmp_path):
+    """An index at or above 2^n_bits breaks the contract: the kernel traps
+    (in a child process, since a trap ends the CUDA context)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = ("import torch\n"
+            "from repro_torch.kernels import cutvals\n"
+            "idx = torch.tensor([[0, 1, 2, 9]], dtype=torch.int32, device='cuda')\n"
+            "e = torch.tensor([[[0, 1]]], dtype=torch.int32, device='cuda')\n"
+            "w = torch.ones((1, 1), device='cuda')\n"
+            "cutvals.cutvals_at(idx, e, w, n_bits=3)\n"
+            "torch.cuda.synchronize()\n")
+    src = str(Path(__file__).resolve().parent.parent / "src")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env={**__import__("os").environ, "PYTHONPATH": src},
+                          timeout=300)
+    assert proc.returncode != 0
 
 
 @pytest.mark.parametrize("n,k", [(4, 2), (10, 7), (13, 5)])
@@ -170,7 +223,8 @@ def test_apply_phase_kernel_matches_plain(cuda_device, n):
 @pytest.mark.parametrize("b,v", [(37, 48), (300, 300), (5, 129)])
 def test_cut_batch_dense_kernel_equals_plain(cuda_device, b, v):
     """Unweighted: exact against the plain version and the edge-list cut;
-    weighted: within 1e-5 of Σ|w|. B and V divide no tile."""
+    weighted: within 1e-5 of Σ|w|, and within CUT_BATCH_RTOL · Σ|A| of the
+    plain version. B and V divide no tile."""
     from repro_torch.core.graph import Graph, cut_value_batch
 
     rng = np.random.default_rng(b + v)
@@ -188,6 +242,36 @@ def test_cut_batch_dense_kernel_equals_plain(cuda_device, b, v):
                 assert torch.equal(got, want)
             else:
                 torch.testing.assert_close(got, want, atol=tol, rtol=0)
+        stated = cutbatch.CUT_BATCH_RTOL * float(adj.abs().sum())
+        torch.testing.assert_close(got, ref.cut_batch_dense(s, adj, w), atol=stated,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["unit", "integer", "real", "zero"])
+def test_cut_batch_dense_planes_and_knobs(cuda_device, kind):
+    """The split planes equal `ref.split_bf16` with the flags of their
+    nonzero entries; every (batch_tile, k_chunk) gives the same bits, on
+    real weights too."""
+    rng = np.random.default_rng(3)
+    b, v = 150, 70
+    a = {"unit": (rng.random((v, v)) < 0.3), "integer": rng.integers(-256, 257, (v, v)),
+         "real": rng.standard_normal((v, v)), "zero": np.zeros((v, v))}[kind]
+    adj = torch.as_tensor(a.astype(np.float32), device=cuda_device)
+    s = torch.as_tensor((rng.integers(0, 2, (b, v)) * 2 - 1).astype(np.float32),
+                        device=cuda_device)
+    planes, flags = cutbatch.split_planes(adj)
+    want = ref.split_bf16(adj.cpu())
+    assert all(torch.equal(p.cpu(), q) for p, q in zip(planes, want))
+    assert flags.tolist() == [int(bool(q.any())) for q in want]
+    runs = []
+    for bt in cutbatch.BATCH_TILES:
+        for kc in cutbatch.K_CHUNKS:
+            key = tuning.cache_key("cut_batch_dense", v)
+            with tuning.using_overrides({key: {"batch_tile": bt, "k_chunk": kc}}):
+                runs.append(cutbatch.cut_batch_dense(s, adj, 1.0))
+    assert all(torch.equal(r, runs[0]) for r in runs)
+    if kind != "real":
+        assert torch.equal(runs[0], ref.cut_batch_dense(s, adj, 1.0))
 
 
 def test_tile_candidates_give_the_same_bits(cuda_device):

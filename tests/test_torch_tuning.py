@@ -176,16 +176,18 @@ def _geometry(calls):
         "mixer_matmul": {"row_tile": calls["mixer_trailing"][-1][8]},
         "mixer_strided": {"tile_y": calls["mixer"][-1][9]},
         "cutvals": dict(zip(("tile_b", "edge_chunk"), calls["cutvals"][-1][6:8])),
-        "cutvals_at": dict(zip(("tile_b", "edge_chunk"), calls["cutvals_at"][-1][8:10])),
+        "cutvals_at": {"tile_b": calls["cutvals_at"][-1][8]},
         "cut_batch_dense": dict(zip(("batch_tile", "k_chunk"),
-                                    calls["cut_batch_dense"][-1][7:9])),
+                                    calls["cut_batch_dense"][-1][11:13])),
     }
 
 
 def test_wrappers_launch_builtin_geometry_with_tuning_off(recorder):
     """Today's constants: common.cuh kTile = 4096 amplitudes a mixer block
     (4096 >> k rows, 2^(12-k) lanes), 256 states and 1024 staged edges a
-    cutvals block, 16384 amplitudes a pass-1 expectation block."""
+    cutvals block, 1024 states a cutvals_at block, 16384 amplitudes a pass-1
+    expectation block, 128 spin rows and 64 staged K a cut_batch_dense
+    block."""
     ops.reset_launch_counts()
     _launch_all(n=12, k=7)
     assert _geometry(recorder) == {
@@ -195,8 +197,8 @@ def test_wrappers_launch_builtin_geometry_with_tuning_off(recorder):
         "mixer_matmul": {"row_tile": 32},
         "mixer_strided": {"tile_y": 8},  # 2^(12-3) = 512 clamped to Y = 8
         "cutvals": {"tile_b": 256, "edge_chunk": 1024},
-        "cutvals_at": {"tile_b": 256, "edge_chunk": 1024},
-        "cut_batch_dense": {"batch_tile": 128, "k_chunk": 16},
+        "cutvals_at": {"tile_b": 1024},
+        "cut_batch_dense": {"batch_tile": 128, "k_chunk": 64},
     }
     assert ops.launch_counts() == {
         "cutvals": 1, "cutvals_at": 1, "fused_phase_mixer_group": 1,
@@ -222,8 +224,8 @@ def test_wrappers_launch_the_override_with_tuning_on(recorder):
         "mixer_matmul": {"row_tile": 8},
         "mixer_strided": {"tile_y": 4},
         "cutvals": {"tile_b": 1024, "edge_chunk": 64},
-        "cutvals_at": {"tile_b": 64, "edge_chunk": 256},
-        "cut_batch_dense": {"batch_tile": 32, "k_chunk": 8},
+        "cutvals_at": {"tile_b": 64},
+        "cut_batch_dense": {"batch_tile": 64, "k_chunk": 32},
     }
     table = {tuning.cache_key(op, dims[op], "cpu"): cfg for op, cfg in want.items()}
     with tuning.using_overrides(table):
@@ -244,8 +246,10 @@ def test_wrappers_launch_the_override_with_tuning_on(recorder):
     ("cutvals", {"tile_b": 4096}),
     ("cutvals", {"edge_chunk": 2048}),
     ("cutvals_at", {"tile_b": 16}),
+    ("cutvals_at", {"tile_b": 4096}),
     ("cut_batch_dense", {"batch_tile": 256}),
-    ("cut_batch_dense", {"k_chunk": 12}),
+    ("cut_batch_dense", {"batch_tile": 32}),
+    ("cut_batch_dense", {"k_chunk": 16}),
 ])
 def test_out_of_range_knobs_raise(recorder, op, cfg):
     dims = {"apply_phase": 4096, "expectation": 4096, "fused_layer": 32,
@@ -304,8 +308,8 @@ def test_sweep_puts_the_default_first_and_never_loses_to_it(smoke_sweep):
         "fused_layer": {"row_tile": 8},
         "mixer_strided": {"tile_y": 128},  # 512 clamped to Y = 2^7
         "cutvals": {"tile_b": 256, "edge_chunk": 1024},
-        "cutvals_at": {"tile_b": 256, "edge_chunk": 1024},
-        "cut_batch_dense": {"batch_tile": 128, "k_chunk": 16},
+        "cutvals_at": {"tile_b": 1024},
+        "cut_batch_dense": {"batch_tile": 128, "k_chunk": 64},
     }
     for r in swept:
         assert r["default_config"] == defaults[r["op"]], r["name"]
