@@ -10,14 +10,17 @@ runs these phases, each printing one line, failing on the first fault:
 1. card: nvidia-smi's name and power limit, torch/CUDA versions, build time;
 2. every kernel against its plain PyTorch version at the shapes its path
    gives it, with times: the single-device solve's (B = 18 subgraphs,
-   n = 24 qubits), the sharded solve's (n = 26 over D = 4 shards), and
-   the dense cut batch's (2^18 x 400 and 4,096 x 16,000 spins); the two
-   redesigned kernels bitwise on integer inputs, within their stated
-   tolerances on real ones, and their table pass and split planes bitwise
-   against the CPU mirrors in ``kernels/ref.py``;
-3. the autograd rules (kernel path) against plain-PyTorch autograd;
+   n = 24 qubits; the layer backward's ∂β over all 24 qubits), the sharded
+   solve's (n = 26 over D = 4 shards), and the dense cut batch's (2^18 x
+   400 and 4,096 x 16,000 spins); the redesigned cut kernels bitwise on
+   integer inputs, within their stated tolerances on real ones, and their
+   table pass, fills and split planes bitwise against the mirrors in
+   ``kernels/ref.py``; ∂β within its stated tolerance, bitwise repeatable;
+3. the autograd rules (kernel path, the ∂β kernel included) against
+   plain-PyTorch autograd;
 4. the full-width solve: G(400, 0.1) Max-Cut at N = 24 qubits, with each
-   kernel's launch count held against the count the code predicts;
+   kernel's launch count held against the count the code predicts, and
+   where one Adam step's time goes (4b);
 5. the same port on the card and on the CPU (G(60, 0.3), N = 10);
 6. linear terms (MIS) on the card and on the CPU;
 7. the sharded solve at full width: the same graph, N = 24 and mesh
@@ -71,6 +74,9 @@ KERNEL_META = {
                     "src/repro/kernels/phase.py:29"),
     "cut_batch_dense": ("src/repro_torch/kernels/csrc/cutbatch.cu",
                         "src/repro/kernels/cutbatch.py:28"),
+    # no Pallas kernel: the jnp contraction XLA fuses in the layer's custom_vjp
+    "beta_grad": ("src/repro_torch/kernels/csrc/betagrad.cu",
+                  "src/repro/kernels/ops.py:291"),
 }
 DENSE_CHECK_ROWS = 64  # rows also scored through the edge list
 
@@ -647,7 +653,7 @@ DEFAULT_GEOMETRY = {
     "fused_layer|2^17": {"row_tile": 32},
     "mixer_strided|2^17": {"tile_y": 32},
     "mixer_strided|2^21": {"tile_y": 512},
-    "cutvals|2^24": {"tile_b": 256, "edge_chunk": 1024},
+    "cutvals|2^24": {"tile_b": 1024},
     "cutvals_at|2^26": {"tile_b": 1024},
     "cut_batch_dense|2^9": {"batch_tile": 128, "k_chunk": 64},
     "cut_batch_dense|2^14": {"batch_tile": 128, "k_chunk": 64},
@@ -763,7 +769,7 @@ def main() -> int:
     from repro_torch.core.graph import Graph, Problem
     from repro_torch.core.partition import partition_for_solver, split_linear
     from repro_torch.device import resolve_device
-    from repro_torch.kernels import _build, fused_layer, mixer, ops, phase, ref
+    from repro_torch.kernels import _build, betagrad, fused_layer, mixer, ops, phase, ref
     from repro_torch.kernels import cutvals as cutvals_mod
     from repro_torch.roofline import analysis
 
@@ -808,34 +814,52 @@ def main() -> int:
             "library_ms": library_ms,
         }
 
-    # cutvals, without and with linear rows; integer weights give exact sums
-    real_edges = int((weights != 0).sum())
+    # cutvals (table pass + fill): bitwise on integer weights, without and
+    # with integer linear rows (every sum an exact integer); with real linear
+    # rows within CUTVALS_AT_RTOL of each row's Σ|w| + Σ|h| (table order, not
+    # edge order) and bitwise equal to the mirror run on the same tensors
+    lin_int = torch.as_tensor(np.random.default_rng(5).integers(-3, 4, (B_MAIN, N_MAIN))
+                              .astype(np.float32), device=dev)
     line = []
     err_max = 0.0
-    for label, linear in (("no linear", None), ("linear rows", lin)):
+    for label, linear in (("no linear", None), ("integer linear rows", lin_int),
+                          ("real linear rows", lin)):
         got = cutvals_mod.cutvals(N_MAIN, edges, weights, linear)
         want = ref.cutvals(N_MAIN, edges, weights, linear)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        tol = 0.0 if linear is None else 1e-6 * float(want.abs().max())
-        check(err <= tol, f"cutvals ({label}) max_abs_err {err} > {tol}")
-        line.append(f"{label}: max_abs_err {err:.3g} (tol {tol:.3g})")
-        err_max = max(err_max, err)
-        if linear is None:
-            ms = time_ms(torch, lambda: cutvals_mod.cutvals(N_MAIN, edges, weights), 10)
-            plain = time_ms(torch, lambda: ref.cutvals(N_MAIN, edges, weights), 2)
-            n_e = edges.shape[1]
-            record("cutvals", 0.0, ms, plain,
-                   bytes_=4 * amps + 12 * B_MAIN * n_e,
-                   flops=2 * dim * real_edges)
-        del got, want
-    results["cutvals"]["max_abs_err"] = err_max
+        err = (got - want).abs().amax(1)
+        if linear is not lin:
+            check(torch.equal(got, want), f"cutvals ({label}) differs from its plain "
+                  f"version by {float(err.max())}")
+            line.append(f"{label}: bitwise equal")
+        else:
+            tol = cutvals_mod.CUTVALS_AT_RTOL * ref.append_linear_rows(
+                edges, weights, linear)[1].abs().sum(1)
+            check(bool((err <= tol).all()), f"cutvals ({label}): max_abs_err "
+                  f"{float(err.max())} above the tolerance {float(tol.min())}")
+            del want
+            mirror = ref.cutvals_split(N_MAIN, edges, weights, linear)
+            check(torch.equal(got, mirror), f"cutvals ({label}) differs from "
+                  "ref.cutvals_split")
+            err_max = float(err.max())
+            line.append(f"{label}: within {err_max:.3g} (tol {float(tol.min()):.3g}) "
+                        "and bitwise equal to ref.cutvals_split")
+            del mirror
+        del got
+    torch.cuda.empty_cache()
+    ms = time_ms(torch, lambda: cutvals_mod.cutvals(N_MAIN, edges, weights), 10)
+    table_ms = time_ms(torch, lambda: cutvals_mod.split_tables(edges, weights, N_MAIN), 10)
+    plain = time_ms(torch, lambda: ref.cutvals(N_MAIN, edges, weights), 2)
+    real_edges = int((weights != 0).sum())
+    # bytes: the (B, 2^n) output and the edge rows once; operations: the
+    # fill's adds, T_lo + T_hi and one a set bit of lo (l / 2 on average)
+    record("cutvals", err_max, ms, plain, bytes_=4 * amps + 12 * B_MAIN * edges.shape[1],
+           flops=amps * (1 + min(N_MAIN, cutvals_mod.LO_BITS) / 2))
+    r = results["cutvals"]
     print(f"[2 kernel cutvals] B={B_MAIN} n={N_MAIN} E_pad={edges.shape[1]} "
-          f"({real_edges} real edges) | " + " | ".join(line) +
-          f" | kernel {results['cutvals']['ms']:.3f} ms, plain "
-          f"{results['cutvals']['plain_ms']:.1f} ms, bound "
-          f"{results['cutvals']['bound_ms']:.3f} ms "
-          f"({results['cutvals']['bound_by']})")
+          f"({real_edges} real edges), l={cutvals_mod.LO_BITS} | " + " | ".join(line)
+          + f" | kernel {ms:.3f} ms (table pass alone {table_ms:.3f} ms), plain "
+          f"{plain:.1f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
     cutv = ref.cutvals(N_MAIN, edges, weights)
 
     gamma = torch.as_tensor(rng.uniform(-1, 1, B_MAIN).astype(np.float32), device=dev)
@@ -951,7 +975,49 @@ def main() -> int:
     print(f"[2 kernel apply_phase] (B, 2^n)=({B_MAIN}, {dim}), per-row gamma | "
           f"max_abs_err {err:.3g} (tol {tol:.3g}) | kernel {r['ms']:.3f} ms, plain "
           f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
-    del re, im, cutv
+    # ∂β of the layer backward (all n qubits, as the solve calls it) and of
+    # two mixer groups, on seeded cotangents: within BETA_GRAD_RTOL · S of
+    # the plain version a row (S = Σ_x Σ_q |products|) and bitwise repeatable
+    d_re = torch.as_tensor(rng.standard_normal((B_MAIN, dim), dtype=np.float32), device=dev)
+    d_im = torch.as_tensor(rng.standard_normal((B_MAIN, dim), dtype=np.float32), device=dev)
+    parts = []
+    for lo_bit, nbits in ((0, N_MAIN), (7, 7), (21, 3)):
+        bargs = (d_re, d_im, re, im, lo_bit, nbits)
+        got = betagrad.beta_grad(*bargs)
+        again = betagrad.beta_grad(*bargs)
+        want = ref.beta_grad(*bargs)
+        tol = betagrad.tolerance(*bargs)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        check(bool((err <= tol).all()), f"beta_grad qubits [{lo_bit}, {lo_bit + nbits}): "
+              f"errors {err.tolist()} above the tolerances {tol.tolist()}")
+        check(torch.equal(got, again), f"beta_grad qubits [{lo_bit}, {lo_bit + nbits}) "
+              "is not bitwise repeatable")
+        parts.append(f"qubits [{lo_bit}, {lo_bit + nbits}) in passes "
+                     f"{ref.beta_grad_groups(lo_bit, nbits)}: max_abs_err "
+                     f"{float(err.max()):.3g} (tol {float(tol.min()):.3g}, |dbeta| up to "
+                     f"{float(want.abs().max()):.3g})")
+        if lo_bit == 0:
+            ms = time_ms(torch, lambda: betagrad.beta_grad(*bargs), 10)
+            plain = time_ms(torch, lambda: ref.beta_grad(*bargs), 3)
+            # bytes: the four planes read once; operations: 2 products, a
+            # difference and an add a (state, qubit) pair
+            record("beta_grad", float(err.max()), ms, plain,
+                   bytes_=16 * amps + 4 * B_MAIN, flops=4 * amps * nbits)
+        else:
+            r = results["beta_grad"]
+            r["max_abs_err"] = max(r["max_abs_err"], float(err.max()))
+        del got, again, want, tol
+    r = results["beta_grad"]
+    spills = [ln.strip() for ln in _build.ptxas_log("betagrad").splitlines()
+              if "spill" in ln or "registers" in ln]
+    print(f"[2 kernel beta_grad] (B, 2^n)=({B_MAIN}, {dim}) | " + " | ".join(parts)
+          + f" | all n qubits: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+          f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}: one read of the four planes; "
+          f"{len(ref.beta_grad_groups(0, N_MAIN))} passes read them that many times), "
+          f"bitwise repeatable | ptxas: {'; '.join(spills) or 'no lines'}")
+    del d_re, d_im, bargs
+    del re, im, cutv, r3, i3, args  # views keep the planes alive too
     torch.cuda.empty_cache()
     kernel_cutvals_at(torch, graph, dev, record, results)
     kernel_cut_batch_dense(torch, dev, peak_key, record, results)
@@ -1001,6 +1067,7 @@ def main() -> int:
             ["re", "im", "cutv", "gamma"]),
     }
     parts = []
+    ops.reset_launch_counts()
     for name, (fk, fp, names) in cases.items():
         gk, gp = grads(fk, names), grads(fp, names)
         errs = {k: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
@@ -1008,8 +1075,12 @@ def main() -> int:
         bad = {k: e for k, e in errs.items() if e > 1e-4}
         check(not bad, f"{name} gradient max rel err > 1e-4: {bad}")
         parts.append(f"{name}: " + ", ".join(f"d_{k} {e:.2g}" for k, e in errs.items()))
+    bg_launches = ops.launch_counts()["beta_grad"]
+    check(bg_launches == 2, f"{bg_launches} beta_grad launches in phase 3, expected 2 "
+          "(the layer's backward and the mixer group's)")
     print(f"[3 grads] B={bg} n={ng}, per-row angles, max rel err vs plain autograd "
-          f"(tol 1e-4) | " + " | ".join(parts))
+          f"(tol 1e-4), dbeta through the beta_grad kernel ({bg_launches} launches) | "
+          + " | ".join(parts))
     del base, w_re, w_im
     torch.cuda.empty_cache()
 
@@ -1026,6 +1097,7 @@ def main() -> int:
         "expectation": steps + 1,
         "apply_phase": 0,
         "cut_batch_dense": 0,
+        "beta_grad": steps * p,  # one a layer backward, p a step
     }
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()

@@ -265,20 +265,16 @@ def _sweep_state_ops(sw: _Sweeper, shapes: Shapes):
         })
     del re, im, cutv
 
-    real_edges = int((weights != 0).sum())
+    # the fill kernel's adds: T_lo + T_hi, then one a set bit of lo (l / 2 on average)
     sw.sweep("cutvals", dim,
              lambda: cutvals.cutvals(n, edges, weights),
-             _cutvals_candidates(), flops=2.0 * dim * real_edges,
+             _cutvals_candidates(), flops=amps * (1.0 + min(n, cutvals.LO_BITS) / 2),
              nbytes=4.0 * amps + 12.0 * weights.numel(), shape=shape)
 
 
 def _cutvals_candidates():
-    """States per block and edges staged at a time, the default first."""
-    cands = [{"tile_b": cutvals.TILE_B, "edge_chunk": cutvals.EDGE_CHUNK}]
-    cands += [{"tile_b": t, "edge_chunk": cutvals.EDGE_CHUNK}
-              for t in (64, 128, 512, 1024, 2048)]
-    cands += [{"tile_b": cutvals.TILE_B, "edge_chunk": c} for c in (64, 256)]
-    return _dedup(cands)
+    """States per block of the fill kernel, the default first."""
+    return _dedup([{"tile_b": t} for t in (cutvals.TILE_B, 128, 256, 512, 2048)])
 
 
 def _sweep_cutvals_at(sw: _Sweeper, shapes: Shapes):

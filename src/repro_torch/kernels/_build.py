@@ -8,8 +8,9 @@ file and the compiler flags: an edited source gets a fresh directory, an
 unchanged one is loaded as built. Nothing here runs at import time.
 
 A source may export more than one entry point (``cutvals.cu`` has the
-full-range form, the indexed form and its table pass; ``cutbatch.cu`` the
-split pass and the product). Each wrapper bumps its op's count in
+table pass, the full-range fill and the indexed form; ``cutbatch.cu`` the
+split pass and the product; ``betagrad.cu`` the group passes and the
+final sum). Each wrapper bumps its op's count in
 `launches` once per call that launches its kernels.
 """
 
@@ -25,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("cutbatch", "cutvals", "fused_layer", "mixer", "phase")
+SOURCES = ("betagrad", "cutbatch", "cutvals", "fused_layer", "mixer", "phase")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -38,11 +39,14 @@ I32 = ctypes.c_int
 # pointers and the stream as void*, sizes as int64/int; each returns
 # cudaGetLastError() after its launch
 SIGNATURES = {
+    "beta_grad_group": ("betagrad", "pq_beta_grad_group",
+                        [P, P, P, P, P, I64, I64, I32, I64, I64, I64, I64, P]),
+    "beta_grad_final": ("betagrad", "pq_beta_grad_final", [P, P, I64, I64, P]),
     "cut_batch_split": ("cutbatch", "pq_cut_batch_split",
                         [P, P, P, I64, I64, I64, P]),
     "cut_batch_dense": ("cutbatch", "pq_cut_batch_dense",
                         [P, P, P, P, P, P, P, I64, I64, I64, I64, I32, I32, P]),
-    "cutvals": ("cutvals", "pq_cutvals", [P, P, P, I64, I64, I32, I64, I64, P]),
+    "cutvals": ("cutvals", "pq_cutvals", [P, P, P, I64, I32, I64, P]),
     "cutvals_tables": ("cutvals", "pq_cutvals_tables",
                        [P, P, P, P, I64, I64, I32, P]),
     "cutvals_at": ("cutvals", "pq_cutvals_at",

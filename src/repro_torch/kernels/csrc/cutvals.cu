@@ -1,6 +1,6 @@
 // Diagonal objective of basis states, batched over subgraphs: of every
-// state (pq_cutvals) or of the states an index table names (pq_cutvals_at,
-// with its table pass pq_cutvals_tables).
+// state (pq_cutvals) or of the states an index table names (pq_cutvals_at),
+// both from the tables of one table pass (pq_cutvals_tables).
 //
 // Replaces: src/repro/kernels/cutvals.py::_kernel (pallas_call at
 // cutvals.py:78) and cutvals.py::_at_kernel (pallas_call at :141), which
@@ -14,24 +14,9 @@
 // Linear terms arrive as appended (v, 30, h_v) rows; padding rows (0, 0, 0)
 // add zero.
 //
-// pq_cutvals: the edge-order kernel. Bound on the H100: integer issue, not
-// bytes. It writes 4 bytes per state but does ~6 integer/float operations
-// per (state, edge) pair, and a 24-qubit subgraph carries a few dozen edge
-// rows. A block scores `tile_b` consecutive states of one row, with
-// min(tile_b, 256) threads that each own tile_b / threads of them (1, 2,
-// 4 or 8 states, strided by the thread count so stores stay coalesced),
-// so no reduction across threads and no atomics. A block stages its edge
-// row in shared memory, `edge_chunk` edges at a time; every thread reads
-// the same edge at the same time, a broadcast with no bank conflict, and
-// applies it to each of its states. Each state accumulates in f32 in edge
-// order, as the plain version does (ref.cutvals), so the two agree bit for
-// bit whatever tile_b and edge_chunk are, and integer weights give exact
-// integers. Defaults: tile_b 256, edge_chunk 1024.
-//
-// pq_cutvals_at: a table lookup, O(l) work a state where the edge-order
-// kernel did O(E). Bound on the H100: the bytes of the cut table it writes
-// (4 B a state and edge row, with 4 B of index a state read once). Split
-// x < 2^n into lo = its low l = min(n, 12) bits and hi = the rest. Then
+// Both are a table lookup, O(l) work a state where an edge-order kernel
+// does O(E). Split x < 2^n into lo = its low l = min(n, 12) bits and
+// hi = the rest. Then
 //   c(x) = T_lo[lo] + T_hi[hi] + sum_{j < l, bit j of lo set} D[hi, j]
 // where, edge by edge (a ^ b = a + b - 2ab for bits):
 //   both ends in lo:  w * (bit_i ^ bit_j) into T_lo (2^l f32);
@@ -43,74 +28,38 @@
 //   lies on; i == j, or both ends >= n, adds nothing.
 // cutvals_tables (one thread per lo value, one per hi value for T_hi and
 // its D row) adds each entry's edges in edge order, so the tables are
-// deterministic and equal ref.cutvals_split_tables bit for bit. cutvals_expand (`tile_b` states a block, as above) reads
-// each index once and writes every edge row's value of it: T_lo[lo] and
-// the hi record (D[hi, 0..11] and T_hi[hi], 64 bytes, four 16-byte loads)
-// come from L1/L2 (the sharded layouts' runs of consecutive indices make
-// the T_lo reads coalesced and the record reads broadcasts), the record is
-// kept in registers while hi repeats, and the j are added in increasing
-// order, as ref.cutvals_at_split does. An
-// index at or above 2^n (or negative) is a breach of the caller's contract:
-// the kernel stops with __trap() instead of reading out of bounds.
-// Integer weights and linear terms give exact integers, equal to the
-// edge-order plain version's bits; real ones agree with it within the
-// tolerance stated in cutvals.py (the order of the sum changed).
+// deterministic and equal ref.cutvals_split_tables bit for bit. Every
+// state then adds T_lo[lo] and T_hi[hi], then D[hi, j] for the set bits j
+// of lo in increasing j, as ref.cutvals_at_split does. Integer weights and
+// linear terms give exact integers, equal to the edge-order plain
+// version's bits; real ones agree with it within the tolerance stated in
+// cutvals.py (the order of the sum changed).
+//
+// pq_cutvals (cutvals_fill): the states are every x < 2^n in order, so it
+// reads no index. Bound on the H100: the 4 bytes it writes a state (the
+// tables are 2^12 + 2^(n-12) * 16 floats a row, read from L1/L2). A block
+// covers `tile_b` consecutive states of one edge row (tile_b <= 2048
+// divides 2^l = 4096, or the row is 2^n < 2^12 states with hi = 0), so
+// its states share one hi: the block reads the 64-byte hi record (D[hi,
+// 0..11], T_hi[hi]) once, a broadcast, and keeps it in registers; T_lo
+// reads and the f32 stores are coalesced. min(tile_b, 256) threads own
+// tile_b / threads states each, strided by the thread count.
+//
+// pq_cutvals_at (cutvals_expand): bound on the H100 by the bytes of the
+// cut table it writes (4 B a state and edge row, with 4 B of index a state
+// read once). A block reads each of its `tile_b` indices once and writes
+// every edge row's value of it: T_lo[lo] and the hi record come from
+// L1/L2 (the sharded layouts' runs of consecutive indices make the T_lo
+// reads coalesced and the record reads broadcasts), the record is kept in
+// registers while hi repeats. An index at or above 2^n (or negative) is a
+// breach of the caller's contract: the kernel stops with __trap() instead
+// of reading out of bounds.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kEdgeChunk = 1024;  // largest edge_chunk: the shared arrays' size
 constexpr int kLoMax = 12;        // l = min(n, kLoMax) low bits in T_lo
 constexpr int kRecord = 16;       // floats a hi record: D[hi, 0..11], T_hi[hi], pad
-
-// kPer: states per thread; the state is its position in the row.
-template <int kPer>
-__global__ void __launch_bounds__(pq::kThreads)
-cutvals_kernel(const int32_t* __restrict__ edges,
-               const float* __restrict__ weights, float* __restrict__ out,
-               int64_t n_edges, int64_t width, int64_t blocks_per_row,
-               int edge_chunk) {
-  __shared__ int32_t s_i[kEdgeChunk];
-  __shared__ int32_t s_j[kEdgeChunk];
-  __shared__ float s_w[kEdgeChunk];
-  const int64_t row = blockIdx.x / blocks_per_row;
-  const int64_t blk = blockIdx.x % blocks_per_row;
-  const int64_t first = blk * blockDim.x * kPer + threadIdx.x;
-  int32_t x[kPer];
-  float acc[kPer];
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    x[u] = static_cast<int32_t>(first + static_cast<int64_t>(u) * blockDim.x);
-    acc[u] = 0.f;
-  }
-  const int32_t* e = edges + row * n_edges * 2;
-  const float* w = weights + row * n_edges;
-  for (int64_t base = 0; base < n_edges; base += edge_chunk) {
-    const int cnt = static_cast<int>(
-        n_edges - base < edge_chunk ? n_edges - base : edge_chunk);
-    __syncthreads();  // previous chunk fully consumed
-    for (int t = threadIdx.x; t < cnt; t += blockDim.x) {
-      s_i[t] = e[2 * (base + t)];
-      s_j[t] = e[2 * (base + t) + 1];
-      s_w[t] = w[base + t];
-    }
-    __syncthreads();
-    for (int t = 0; t < cnt; ++t) {
-      const int32_t ei = s_i[t], ej = s_j[t];
-      const float ew = s_w[t];
-#pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        const int crossed = ((x[u] >> ei) ^ (x[u] >> ej)) & 1;
-        acc[u] = acc[u] + ew * static_cast<float>(crossed);
-      }
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const int64_t pos = first + static_cast<int64_t>(u) * blockDim.x;
-    if (pos < width) out[row * width + pos] = acc[u];
-  }
-}
 
 // The tables of edge row b, edges in order for every entry: threads
 // [0, 2^l) each write T_lo[lo]; threads [2^l, 2^l + 2^h) each write the
@@ -169,6 +118,37 @@ cutvals_tables(const int32_t* __restrict__ edges,
   rec[1] = make_float4(d[4], d[5], d[6], d[7]);
   rec[2] = make_float4(d[8], d[9], d[10], d[11]);
   rec[3] = make_float4(acc, 0.f, 0.f, 0.f);
+}
+
+// Every state x < 2^n of edge row b, from the tables; kPer states a
+// thread, strided by the thread count. The block's states share one hi.
+template <int kPer>
+__global__ void __launch_bounds__(pq::kThreads)
+cutvals_fill(const float* __restrict__ t_lo, const float* __restrict__ hd,
+             float* __restrict__ out, int64_t width, int l,
+             int64_t blocks_per_row) {
+  const int64_t n_lo = int64_t(1) << l;
+  const int64_t row = blockIdx.x / blocks_per_row;
+  const int64_t first = (blockIdx.x % blocks_per_row) * blockDim.x * kPer;
+  const float4* rec = reinterpret_cast<const float4*>(
+      hd + (row * (width >> l) + (first >> l)) * kRecord);
+  const float4 q0 = __ldg(rec), q1 = __ldg(rec + 1);
+  const float4 q2 = __ldg(rec + 2), q3 = __ldg(rec + 3);
+  const float d[kLoMax] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y,
+                           q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
+  const float* tl = t_lo + row * n_lo;
+  float* o = out + row * width;
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int64_t pos = first + threadIdx.x + static_cast<int64_t>(u) * blockDim.x;
+    if (pos >= width) continue;
+    const int32_t lo = static_cast<int32_t>(pos & (n_lo - 1));
+    float c = __fadd_rn(__ldg(tl + lo), q3.x);
+#pragma unroll
+    for (int j = 0; j < kLoMax; ++j)
+      if ((lo >> j) & 1) c = __fadd_rn(c, d[j]);
+    o[pos] = c;
+  }
 }
 
 // Every edge row's value at the states idx[s, p], from the tables; kPer
@@ -234,16 +214,14 @@ bool geometry(int64_t tile_b, int* threads, int* per) {
 }
 
 template <int kPer>
-void launch_cutvals(const void* edges, const void* weights, void* out,
-                    int64_t rows, int64_t n_edges, int64_t width, int threads,
-                    int edge_chunk, cudaStream_t st) {
+void launch_fill(const void* t_lo, const void* hd, void* out, int64_t batch,
+                 int64_t width, int l, int threads, cudaStream_t st) {
   const int64_t tile_b = static_cast<int64_t>(threads) * kPer;
   const int64_t blocks_per_row = (width + tile_b - 1) / tile_b;
-  cutvals_kernel<kPer>
-      <<<static_cast<unsigned>(rows * blocks_per_row), threads, 0, st>>>(
-          static_cast<const int32_t*>(edges),
-          static_cast<const float*>(weights), static_cast<float*>(out),
-          n_edges, width, blocks_per_row, edge_chunk);
+  cutvals_fill<kPer>
+      <<<static_cast<unsigned>(batch * blocks_per_row), threads, 0, st>>>(
+          static_cast<const float*>(t_lo), static_cast<const float*>(hd),
+          static_cast<float*>(out), width, l, blocks_per_row);
 }
 
 template <int kPer>
@@ -261,23 +239,21 @@ void launch_expand(const void* idx, const void* t_lo, const void* hd, void* out,
 
 }  // namespace
 
-// edges (B, E, 2) int32, weights (B, E) f32, out (B, 2^log2_dim) f32;
-// tile_b a power of two in [32, 2048], edge_chunk in [1, 1024].
-PQ_EXPORT int pq_cutvals(const void* edges, const void* weights, void* out,
-                         int64_t batch, int64_t n_edges, int log2_dim,
-                         int64_t tile_b, int64_t edge_chunk, void* stream) {
+// The tables of pq_cutvals_tables for B edge rows -> out (B, 2^n) f32,
+// every state of every row; tile_b a power of two in [32, 2048].
+PQ_EXPORT int pq_cutvals(const void* t_lo, const void* hd, void* out,
+                         int64_t batch, int n, int64_t tile_b, void* stream) {
   int threads, per;
-  if (!geometry(tile_b, &threads, &per) || edge_chunk < 1 ||
-      edge_chunk > kEdgeChunk)
+  if (n < 1 || n > 29 || !geometry(tile_b, &threads, &per))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t width = int64_t(1) << log2_dim;
-  const int chunk = static_cast<int>(edge_chunk);
+  const int l = n < kLoMax ? n : kLoMax;
+  const int64_t width = int64_t(1) << n;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (per) {
-    case 1: launch_cutvals<1>(edges, weights, out, batch, n_edges, width, threads, chunk, st); break;
-    case 2: launch_cutvals<2>(edges, weights, out, batch, n_edges, width, threads, chunk, st); break;
-    case 4: launch_cutvals<4>(edges, weights, out, batch, n_edges, width, threads, chunk, st); break;
-    default: launch_cutvals<8>(edges, weights, out, batch, n_edges, width, threads, chunk, st);
+    case 1: launch_fill<1>(t_lo, hd, out, batch, width, l, threads, st); break;
+    case 2: launch_fill<2>(t_lo, hd, out, batch, width, l, threads, st); break;
+    case 4: launch_fill<4>(t_lo, hd, out, batch, width, l, threads, st); break;
+    default: launch_fill<8>(t_lo, hd, out, batch, width, l, threads, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

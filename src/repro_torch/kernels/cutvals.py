@@ -3,26 +3,29 @@
 The counterpart of ``repro/kernels/cutvals.py``, batched: edges (B, E, 2)
 int32, weights (B, E) f32, optional linear (B, n) f32 folded in as
 virtual-bit rows (`ref.append_linear_rows`). `cutvals` scores every state
-x < 2^n (the Pallas ``_kernel``, ``cutvals.py:47-90``) with the edge-order
-kernel; `cutvals_at` scores the states an (S, L) index table names
-(``_at_kernel``, ``cutvals.py:108-166``), the layout-A/B cut tables of the
-sharded statevector, by table lookup: a table pass builds T_lo, T_hi and D
-per edge row (`split_tables`), and the expand kernel computes
-c = T_lo[lo] + T_hi[hi] + Σ_{j set in lo} D[hi, j] for each index, lo its
-low ``LO_BITS`` bits. Both are ``csrc/cutvals.cu``; the plain versions are
-`ref.cutvals` and `ref.cutvals_at`, and `ref.cutvals_split_tables` and
-`ref.cutvals_at_split` mirror the table design on the CPU.
+x < 2^n (the Pallas ``_kernel``, ``cutvals.py:47-90``); `cutvals_at`
+scores the states an (S, L) index table names (``_at_kernel``,
+``cutvals.py:108-166``), the layout-A/B cut tables of the sharded
+statevector. Both are a table lookup: a table pass builds T_lo, T_hi and D
+per edge row (`split_tables`), and a second kernel computes
+c = T_lo[lo] + T_hi[hi] + Σ_{j set in lo} D[hi, j] for each state, lo its
+low ``LO_BITS`` bits: the fill kernel for every state in order (it reads
+no index), the expand kernel for the states of an index table. All are
+``csrc/cutvals.cu``; the plain versions are `ref.cutvals` and
+`ref.cutvals_at` (edge order), and `ref.cutvals_split_tables`,
+`ref.cutvals_split` and `ref.cutvals_at_split` mirror the table design on
+the CPU.
 
-Knobs (through `tuning.param`): ``cutvals`` takes ``tile_b``, states per
-block, and ``edge_chunk``, edges staged in shared memory at a time;
-``cutvals_at`` takes ``tile_b`` (the table pass has no knob). None changes
+Knobs (through `tuning.param`): ``cutvals`` and ``cutvals_at`` each take
+``tile_b``, states per block (the table pass has no knob). Neither changes
 a bit of the result.
 
-Exactness: `cutvals` adds in edge order, as the plain version does, so
-the two agree bit for bit. `cutvals_at` adds in table order: integer
-weights and linear terms give exact integers, equal to the plain
-version's bits; real ones agree with it within
-``CUTVALS_AT_RTOL · (Σ|w| + Σ|h|)`` of their edge row a state.
+Exactness: both add in table order (T_lo, then T_hi, then D[hi, j] in
+increasing j), not in the plain version's edge order. Integer weights and
+linear terms give exact integers (every partial sum is an integer below
+2^24), equal to the plain version's bits; real ones agree with it within
+``CUTVALS_AT_RTOL · (Σ|w| + Σ|h|)`` of their edge row a state, and equal
+the mirror bit for bit.
 """
 
 from __future__ import annotations
@@ -31,13 +34,13 @@ import torch
 
 from repro_torch.kernels import _build, ref, tuning
 
-TILE_B = 256  # states per block: one per thread of a 256-thread block
-EDGE_CHUNK = 1024  # edges staged at a time; the shared arrays hold 1024
+TILE_B = 1024  # cutvals' states per block: 4 per thread
 MAX_TILE_B = 2048  # 8 states per thread
 AT_TILE_B = 1024  # cutvals_at's states per block: 4 per thread
 LO_BITS = ref.CUTVALS_LO_BITS  # l = min(n, 12): T_lo holds 2^l values a row
 RECORD = 16  # floats a hi record on the card: D[hi, 0..11], T_hi[hi], 3 zeros
-CUTVALS_AT_RTOL = 8 * 2.0**-24  # of Σ|w| + Σ|h|: real weights against the plain version
+# of Σ|w| + Σ|h|: either kernel's real weights against the plain version
+CUTVALS_AT_RTOL = 8 * 2.0**-24
 
 
 def tile_b_knob(op: str, dim: int, default: int, device) -> int:
@@ -49,15 +52,6 @@ def tile_b_knob(op: str, dim: int, default: int, device) -> int:
         raise ValueError(f"{op} tile_b {tile_b} outside the kernel's range: "
                          f"a power of two in [32, {MAX_TILE_B}]")
     return tile_b
-
-
-def knobs(dim: int, device) -> tuple[int, int]:
-    """`cutvals`' (tile_b, edge_chunk) over ``dim`` states a row."""
-    tile_b = tile_b_knob("cutvals", dim, TILE_B, device)
-    chunk = tuning.param("cutvals", dim, "edge_chunk", EDGE_CHUNK, device)
-    if not 1 <= chunk <= EDGE_CHUNK:
-        raise ValueError(f"cutvals edge_chunk {chunk} outside [1, {EDGE_CHUNK}]")
-    return tile_b, chunk
 
 
 def _edge_arrays(edges, weights, dev):
@@ -78,13 +72,13 @@ def cutvals(n: int, edges: torch.Tensor, weights: torch.Tensor,
         edges, weights = ref.append_linear_rows(edges, weights, linear)
     if not _build.on_cuda(edges):
         return ref.cutvals(n, edges, weights)
-    edges, weights = _edge_arrays(edges, weights, edges.device)
-    b, e = edges.shape[0], edges.shape[1]
-    tile_b, chunk = knobs(2**n, edges.device)
-    out = torch.empty((b, 2**n), dtype=torch.float32, device=edges.device)
+    t_lo, hd = _tables(edges, weights, n)
+    dev = edges.device
+    tile_b = tile_b_knob("cutvals", 2**n, TILE_B, dev)
+    out = torch.empty((edges.shape[0], 2**n), dtype=torch.float32, device=dev)
     rc = _build.entry("cutvals")(
-        edges.data_ptr(), weights.data_ptr(), out.data_ptr(), b, e, n,
-        tile_b, chunk, _build.stream(edges.device))
+        t_lo.data_ptr(), hd.data_ptr(), out.data_ptr(), edges.shape[0], n, tile_b,
+        _build.stream(dev))
     _build.check(rc, "cutvals")
     _build.count_launch("cutvals")
     return out
@@ -109,8 +103,8 @@ def _tables(edges, weights, n: int):
 def split_tables(edges: torch.Tensor, weights: torch.Tensor, n: int,
                  linear: torch.Tensor | None = None):
     """(T_lo (B, 2^l), T_hi (B, 2^(n-l)), D (B, 2^(n-l), l)) f32 with
-    l = min(n, LO_BITS): the table pass of `cutvals_at` (one launch on the
-    card, `ref.cutvals_split_tables` on the CPU)."""
+    l = min(n, LO_BITS): the table pass of `cutvals` and `cutvals_at` (one
+    launch on the card, `ref.cutvals_split_tables` on the CPU)."""
     if not 1 <= n <= 29:
         raise ValueError(f"n={n} outside [1, 29] (int32 basis, virtual bit 30)")
     if linear is not None:

@@ -12,9 +12,11 @@ same kernels at negated angles:
 
 - `apply_layer` (``_layer_vjp``, ops.py:407-451): the trailing mixer
   groups at −β in reverse order, then the fused kernel in ``reverse``
-  mode at (−γ, −β); ∂β from neighbour sums over all n qubits of the
-  layer output, ∂γ from the phase rule on the layer input.
-- `apply_mixer_bits` (``_mixer_bits_vjp``, ops.py:302-330): the group at −β.
+  mode at (−γ, −β); ∂β from the generator contraction over all n qubits
+  of the layer output (`betagrad.beta_grad`, a kernel of its own: the JAX
+  package leaves it to XLA), ∂γ from the phase rule on the layer input.
+- `apply_mixer_bits` (``_mixer_bits_vjp``, ops.py:302-330): the group at −β;
+  ∂β over the group's qubits, as for the layer.
 - `expectation` (``_expectation_vjp``, ops.py:467-486): closed form.
 - `apply_mixer` (ops.py:333-340): the chain of `apply_mixer_bits` groups.
 - `apply_phase` (``_phase_vjp``, ops.py:238-273): the same kernel at −γ
@@ -28,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, cutbatch, fused_layer, mixer, phase
+from repro_torch.kernels import _build, betagrad, cutbatch, fused_layer, mixer, phase
 from repro_torch.kernels import cutvals as cutvals_mod
 
 # every kernel wrapper, by the name its launches are counted under
@@ -41,6 +43,7 @@ KERNELS = (
     "expectation",
     "apply_phase",
     "cut_batch_dense",
+    "beta_grad",
 )
 
 
@@ -132,32 +135,6 @@ def _layer_adjoint_dispatch(n, group, re, im, cutv, gamma, beta):
     return re_m.reshape(b, -1), im_m.reshape(b, -1)
 
 
-def _neighbor_sum_bits(v, lo_bit: int, nbits: int):
-    """Σ over qubits q in [lo_bit, lo_bit + nbits) of v with bit q flipped:
-    the ∂β generator contraction (each RX factor differentiates into −i·X
-    on its qubit). Per qubit, the (B, -1, 2, 2^q) view pairs each index
-    with its flip; adding the two halves crosswise in place is the
-    ``flip(2)`` add without a temporary plane."""
-    b = v.shape[0]
-    out = torch.zeros_like(v)
-    for q in range(lo_bit, lo_bit + nbits):
-        o = out.view(b, -1, 2, 2**q)
-        w = v.view(b, -1, 2, 2**q)
-        o[:, :, 0].add_(w[:, :, 1])
-        o[:, :, 1].add_(w[:, :, 0])
-    return out
-
-
-def _beta_grad(d_ore, d_oim, ore, oim, lo_bit: int, nbits: int):
-    """Per-row ∂β = Σ d_ore·N(oim) − Σ d_oim·N(ore), one neighbour-sum
-    plane alive at a time."""
-    fi = _neighbor_sum_bits(oim, lo_bit, nbits)
-    a = torch.sum(d_ore * fi, dim=-1)
-    del fi
-    fr = _neighbor_sum_bits(ore, lo_bit, nbits)
-    return a - torch.sum(d_oim * fr, dim=-1)
-
-
 class _Layer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, re, im, cutv, gamma, beta, n, group):
@@ -174,7 +151,7 @@ class _Layer(torch.autograd.Function):
         # a cotangent may arrive strided (``out.sum()`` gives an expanded one)
         d_ore, d_oim = d_ore.contiguous(), d_oim.contiguous()
         # the full n-qubit mixer acts last: ∂β contracts on the output
-        d_beta = _beta_grad(d_ore, d_oim, ore, oim, 0, n)
+        d_beta = betagrad.beta_grad(d_ore, d_oim, ore, oim, 0, n)
         g_re, g_im = _layer_adjoint_dispatch(n, group, d_ore, d_oim, cutv,
                                              gamma, beta)
         # ∂γ and ∂cutv from the phase rule on the layer input
@@ -205,7 +182,7 @@ class _MixerBits(torch.autograd.Function):
         d_ore, d_oim = d_ore.contiguous(), d_oim.contiguous()
         g_re, g_im = mixer.apply_mixer_bits(d_ore, d_oim, n, lo_bit, nbits,
                                             -beta)
-        d_beta = _beta_grad(d_ore, d_oim, ore, oim, lo_bit, nbits)
+        d_beta = betagrad.beta_grad(d_ore, d_oim, ore, oim, lo_bit, nbits)
         return g_re, g_im, d_beta, None, None, None
 
 

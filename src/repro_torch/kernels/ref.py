@@ -20,6 +20,9 @@ import torch
 # vertex makes the unchanged XOR kernel score quadratic + linear terms.
 VIRTUAL_BIT = 30
 CUTVALS_LO_BITS = 12  # the table design's split: lo = the low min(n, 12) bits
+BETA_TILE = 4096  # ∂β kernel: amplitudes a block stages of each plane
+BETA_LANES = 32  # ∂β kernel: least Y-tile where Y allows (coalesced rows)
+BETA_SLOTS = 16  # ∂β kernel: leaves of an amplitude's pairwise tree
 
 
 def append_linear_rows(edges: torch.Tensor, weights: torch.Tensor,
@@ -141,6 +144,17 @@ def cutvals_at_split(idx: torch.Tensor, tables, l: int | None = None) -> torch.T
     return c.reshape(b * s, width)
 
 
+def cutvals_split(n: int, edges: torch.Tensor, weights: torch.Tensor,
+                  linear: torch.Tensor | None = None) -> torch.Tensor:
+    """`cutvals` through the tables of `cutvals_split_tables`, as the CUDA
+    fill kernel computes it: (B, 2^n) f32, `cutvals_at_split` of the
+    identity table."""
+    if linear is not None:
+        edges, weights = append_linear_rows(edges, weights, linear)
+    idx = torch.arange(2**n, dtype=torch.int32, device=edges.device)[None, :]
+    return cutvals_at_split(idx, cutvals_split_tables(edges, weights, n))
+
+
 def apply_phase(re, im, cutv, gamma):
     """Diagonal cost layer psi <- exp(-i gamma c) psi, gamma (B,)."""
     g = gamma.reshape((-1,) + (1,) * (re.dim() - 1))
@@ -236,3 +250,72 @@ def cut_batch_dense_split(spins: torch.Tensor, adjacency: torch.Tensor,
     for plane in split_bf16(adjacency):
         quad = quad + torch.einsum("bi,ij,bj->b", spins, plane.to(torch.float32), spins)
     return _cut_from_quad(quad, total_weight)
+
+
+def neighbor_sum_bits(v, lo_bit: int, nbits: int):
+    """Σ over qubits q in [lo_bit, lo_bit + nbits) of v with bit q flipped:
+    the ∂β generator contraction (each RX factor differentiates into −i·X
+    on its qubit). Per qubit, the (B, -1, 2, 2^q) view pairs each index
+    with its flip; adding the two halves crosswise in place is the
+    ``flip(2)`` add without a temporary plane."""
+    b = v.shape[0]
+    out = torch.zeros_like(v)
+    for q in range(lo_bit, lo_bit + nbits):
+        o = out.view(b, -1, 2, 2**q)
+        w = v.view(b, -1, 2, 2**q)
+        o[:, :, 0].add_(w[:, :, 1])
+        o[:, :, 1].add_(w[:, :, 0])
+    return out
+
+
+def beta_grad(d_ore, d_oim, ore, oim, lo_bit: int, nbits: int):
+    """Per-row ∂β = Σ d_ore·N(oim) − Σ d_oim·N(ore), one neighbour-sum
+    plane alive at a time."""
+    fi = neighbor_sum_bits(oim, lo_bit, nbits)
+    a = torch.sum(d_ore * fi, dim=-1)
+    del fi
+    fr = neighbor_sum_bits(ore, lo_bit, nbits)
+    return a - torch.sum(d_oim * fr, dim=-1)
+
+
+def beta_grad_groups(lo_bit: int, nbits: int):
+    """The ∂β kernel's passes over qubits [lo_bit, lo_bit + nbits): a list
+    of (g0, k, y_tile), one per group of qubits [g0, g0 + k) on the
+    (B, X, 2^k, 2^g0) view, its blocks 2^k × y_tile amplitudes. Each group
+    takes as many qubits as a BETA_TILE tile holds beside at least
+    BETA_LANES lanes (all of Y where Y is smaller), then widens its lanes
+    to fill the tile: qubits 0-11, 12-18, 19-23 at n = 24."""
+    groups, g0, end = [], lo_bit, lo_bit + nbits
+    while g0 < end:
+        lanes = min(2**g0, BETA_LANES)
+        k = min(end - g0, (BETA_TILE // lanes).bit_length() - 1)
+        groups.append((g0, k, min(2**g0, BETA_TILE >> k)))
+        g0 += k
+    return groups
+
+
+def beta_grad_split(d_ore, d_oim, ore, oim, lo_bit: int, nbits: int):
+    """`beta_grad` by the ∂β kernel's decomposition: per group of
+    `beta_grad_groups`, each amplitude's k products d_ore·oim' − d_oim·ore'
+    in f32 (partner x ⊕ 2^q), summed as the kernel's pairwise tree of
+    BETA_SLOTS leaves (zeros past k); those values summed in f64 per row,
+    over every group, and rounded once to f32. The f64 order is torch's,
+    not the kernel's block order, so the two agree to the f64 rounding of
+    the sum (almost always the same f32), not bit for bit."""
+    b, dim = ore.shape
+    n = dim.bit_length() - 1
+    total = torch.zeros(b, dtype=torch.float64, device=ore.device)
+    for g0, k, _ in beta_grad_groups(lo_bit, nbits):
+        shape = (b, 2 ** (n - g0 - k), 2**k, 2**g0)
+        dr, di, o_re, o_im = (t.reshape(shape) for t in (d_ore, d_oim, ore, oim))
+
+        def flip(t, q):
+            return t.reshape(b, shape[1], 2 ** (k - q - 1), 2, 2**q, shape[3]).flip(3) \
+                .reshape(shape)
+
+        slots = [dr * flip(o_im, q) - di * flip(o_re, q) for q in range(k)]
+        slots += [torch.zeros_like(dr)] * (BETA_SLOTS - k)
+        while len(slots) > 1:
+            slots = [slots[i] + slots[i + 1] for i in range(0, len(slots), 2)]
+        total += slots[0].to(torch.float64).sum(dim=(1, 2, 3))
+    return total.to(torch.float32)

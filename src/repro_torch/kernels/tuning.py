@@ -46,7 +46,7 @@ TUNABLE_OPS = {
     "mixer_matmul": ("row_tile",),
     "mixer_strided": ("tile_y",),
     "fused_layer": ("row_tile",),
-    "cutvals": ("tile_b", "edge_chunk"),
+    "cutvals": ("tile_b",),
     "cutvals_at": ("tile_b",),
     "cut_batch_dense": ("batch_tile", "k_chunk"),
 }

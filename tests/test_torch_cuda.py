@@ -8,17 +8,18 @@ H100 run them with::
 
 Small shapes; the main path's shapes are ``chip_smoke.py``'s. Tolerances
 as in tests/test_torch_kernels.py, plus exact cut values on integer
-weights (every sum is an exact integer); the table-lookup ``cutvals_at``
-and the tensor-core ``cut_batch_dense`` add real weights in another order
-than their plain versions, so there they are held to their stated
-tolerances and bitwise to their CPU mirrors.
+weights (every sum is an exact integer); the table-lookup ``cutvals`` and
+``cutvals_at`` and the tensor-core ``cut_batch_dense`` add real weights in
+another order than their plain versions, so there they are held to their
+stated tolerances and bitwise to their CPU mirrors; the ∂β kernel to
+``BETA_GRAD_RTOL · S`` and bitwise across launches.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import cutbatch, fused_layer, mixer, ops, phase, ref, tuning
+from repro_torch.kernels import betagrad, cutbatch, fused_layer, mixer, ops, phase, ref, tuning
 from repro_torch.kernels import cutvals as cutvals_mod
 
 pytestmark = pytest.mark.cuda
@@ -48,6 +49,10 @@ def _inputs(n, b, seed, dev):
 
 @pytest.mark.parametrize("n", [6, 10, 13])
 def test_cutvals_kernel_equals_plain(cuda_device, n):
+    """The table-lookup fill kernel: bitwise on integer weights without and
+    with integer linear rows; with real linear rows within CUTVALS_AT_RTOL
+    of each row's Σ|w| + Σ|h| and bitwise equal to the CPU mirror; the same
+    bits under every tile_b."""
     rng = np.random.default_rng(n)
     edges = torch.as_tensor(rng.integers(0, n, (3, 20, 2)).astype(np.int32),
                             device=cuda_device)
@@ -55,9 +60,20 @@ def test_cutvals_kernel_equals_plain(cuda_device, n):
                         device=cuda_device)
     lin = torch.as_tensor(rng.standard_normal((3, n)).astype(np.float32),
                           device=cuda_device)
-    for linear in (None, lin):
+    lin_int = torch.as_tensor(rng.integers(-3, 4, (3, n)).astype(np.float32),
+                              device=cuda_device)
+    for linear in (None, lin_int):
         got = cutvals_mod.cutvals(n, edges, w, linear)
         assert torch.equal(got, ref.cutvals(n, edges, w, linear))
+    got = cutvals_mod.cutvals(n, edges, w, lin)
+    err = (got - ref.cutvals(n, edges, w, lin)).abs().amax(1)
+    scale = w.abs().sum(1) + lin.abs().sum(1)
+    assert bool((err <= cutvals_mod.CUTVALS_AT_RTOL * scale).all())
+    assert torch.equal(got.cpu(), ref.cutvals_split(n, edges.cpu(), w.cpu(), lin.cpu()))
+    for tile_b in (32, 256, 2048):
+        key = tuning.cache_key("cutvals", 2**n)
+        with tuning.using_overrides({key: {"tile_b": tile_b}}):
+            assert torch.equal(cutvals_mod.cutvals(n, edges, w, lin), got)
 
 
 @pytest.mark.parametrize("n,d", [(6, 2), (10, 4), (13, 8)])
@@ -178,7 +194,7 @@ def test_layer_counts_one_launch_per_kernel_call(cuda_device):
     assert ops.launch_counts() == {
         "cutvals": 0, "cutvals_at": 0, "fused_phase_mixer_group": 1,
         "mixer_group_strided": 4, "mixer_group_trailing": 1, "expectation": 1,
-        "apply_phase": 0, "cut_batch_dense": 0}
+        "apply_phase": 0, "cut_batch_dense": 0, "beta_grad": 0}
 
 
 @pytest.mark.parametrize("schedule", ["faithful", "alternating"])
@@ -289,3 +305,44 @@ def test_tile_candidates_give_the_same_bits(cuda_device):
                         + mixer.mixer_group_strided(re.view(v4), im.view(v4), b, 7))
     for x, y in zip(*runs):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n,lo,nbits", [(4, 0, 4), (13, 0, 13), (16, 0, 16), (14, 2, 7),
+                                        (15, 5, 9), (16, 13, 3), (17, 9, 8)])
+def test_beta_grad_kernel_matches_plain_and_repeats_bitwise(cuda_device, n, lo, nbits):
+    """Within BETA_GRAD_RTOL · S of the plain version a row, at ragged
+    lo_bit and nbits (groups of every lane width), and the same bits on a
+    second launch."""
+    re, im, _, _, _ = _inputs(n, 3, 90 + n + lo, cuda_device)
+    d_re, d_im, _, _, _ = _inputs(n, 3, 190 + n + lo, cuda_device)
+    ops.reset_launch_counts()
+    got = betagrad.beta_grad(d_re, d_im, re, im, lo, nbits)
+    again = betagrad.beta_grad(d_re, d_im, re, im, lo, nbits)
+    want = ref.beta_grad(d_re, d_im, re, im, lo, nbits)
+    tol = betagrad.tolerance(d_re, d_im, re, im, lo, nbits)
+    assert ops.launch_counts()["beta_grad"] == 2
+    assert bool(((got - want).abs() <= tol).all()), (got - want, tol)
+    assert torch.equal(got, again)
+    mirror = ref.beta_grad_split(d_re.cpu(), d_im.cpu(), re.cpu(), im.cpu(), lo, nbits)
+    assert bool(((got.cpu() - mirror).abs() <= tol.cpu()).all())
+
+
+def test_layer_backward_launches_the_beta_grad_kernel(cuda_device):
+    """The layer's and a mixer group's backward each launch ∂β once, and
+    their ∂β matches the plain version's."""
+    n = 14
+    re, im, cutv, g, b = _inputs(n, 2, 11, cuda_device)
+    b = b.clone().requires_grad_(True)
+    ops.reset_launch_counts()
+    out = ops.apply_layer(re, im, cutv, g, b, n, 7)
+    (d_layer,) = torch.autograd.grad(out[0].sum() + 2 * out[1].sum(), b)
+    out = ops.apply_mixer_bits(re, im, n, 3, 6, b)
+    (d_bits,) = torch.autograd.grad(out[0].sum() - out[1].sum(), b)
+    assert ops.launch_counts()["beta_grad"] == 2
+    bp = b.detach().requires_grad_(True)
+    out = ref.apply_mixer(*ref.apply_phase(re, im, cutv, g), n, bp, 7)
+    (want,) = torch.autograd.grad(out[0].sum() + 2 * out[1].sum(), bp)
+    torch.testing.assert_close(d_layer, want, rtol=1e-4, atol=1e-5)
+    out = ref.apply_mixer_bits(re, im, n, 3, 6, bp)
+    (want,) = torch.autograd.grad(out[0].sum() - out[1].sum(), bp)
+    torch.testing.assert_close(d_bits, want, rtol=1e-4, atol=1e-5)

@@ -21,7 +21,7 @@ import torch
 
 from repro.kernels import ops as jax_ops
 from repro_torch.core import qaoa as qaoa_mod
-from repro_torch.kernels import ops
+from repro_torch.kernels import betagrad, ops, ref
 
 RTOL, ATOL = 1e-4, 1e-5
 B = 3
@@ -190,3 +190,45 @@ def test_apply_phase_grads_match_jax(n):
         for name, g, w in zip(names, got, want):
             np.testing.assert_allclose(g[row], w, rtol=1e-5, atol=1e-6,
                                        err_msg=f"d_{name}, row {row}")
+
+
+def _jax_beta_vjp(kind, n, lo, nbits):
+    """(outputs, ∂β) of the JAX op's ``custom_vjp`` for one row and a
+    cotangent, jitted once per case."""
+
+    def fn(a, beta, cot):
+        if kind == "layer":
+            def f(b):
+                return jax_ops.apply_layer(a["re"], a["im"], a["cutv"], a["gamma"], b, n,
+                                           group=7)
+        else:
+            def f(b):
+                return jax_ops.apply_mixer_bits(a["re"], a["im"], n, lo, nbits, b)
+        out, vjp = jax.vjp(f, beta)
+        return out, vjp(cot)[0]
+
+    return jax.jit(fn)
+
+
+@pytest.mark.parametrize("kind,n,lo,nbits", [
+    ("layer", 6, 0, 6), ("layer", 9, 0, 9), ("layer", 13, 0, 13),
+    ("bits", 9, 2, 7), ("bits", 12, 5, 3), ("bits", 13, 7, 6)])
+def test_beta_grad_split_matches_jax_vjp(kind, n, lo, nbits):
+    """The ∂β kernel's decomposition (`ref.beta_grad_split`: groups of
+    qubits, in-tile pair products, a pairwise tree, f64 sums) on the JAX
+    forward's outputs and a random cotangent, against ∂β of the JAX
+    ``custom_vjp`` (``_layer_bwd`` / ``_mixer_bits_bwd``: neighbour sums
+    and ``jnp.sum``), within ``BETA_GRAD_RTOL · S`` a row; the plain
+    version too."""
+    x = _inputs(n, seed=60 + n + lo)
+    vjp_fn = _jax_beta_vjp(kind, n, lo, nbits)
+    with jax_ops.using_implementation("xla"):
+        for row in range(B):
+            a = {k: jnp.asarray(v[row]) for k, v in x.items()}
+            (ore, oim), want = vjp_fn(a, a["beta"], (a["w_re"], a["w_im"]))
+            planes = [torch.from_numpy(np.array(t, dtype=np.float32))[None]
+                      for t in (x["w_re"][row], x["w_im"][row], ore, oim)]
+            tol = float(betagrad.tolerance(*planes, lo, nbits)[0])
+            for got in (ref.beta_grad_split(*planes, lo, nbits),
+                        ref.beta_grad(*planes, lo, nbits)):
+                assert abs(float(got[0]) - float(want)) <= tol, (kind, row, got, want, tol)

@@ -254,6 +254,8 @@ def test_cpu_tensors_take_plain_branch_and_count_no_launch(monkeypatch):
     v = (B, -1, 2**k)
     fused_layer.fused_phase_mixer_group(re.view(v), im.view(v), cutv.view(v),
                                         gamma, beta, k, reverse=True)
+    b = beta.clone().requires_grad_(True)  # the layer backward: ∂β's plain branch
+    torch.autograd.grad(ops.apply_layer(re, im, cutv, gamma, b, n, group=k)[0].sum(), b)
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 

@@ -1,10 +1,11 @@
-"""The decompositions behind the redesigned ``cut_batch_dense`` and
-``cutvals_at`` kernels, on the CPU.
+"""The decompositions behind the redesigned kernels, on the CPU.
 
-The CUDA kernels compute the same functions as before by another route:
-``cut_batch_dense`` as bf16 tensor-core products of the spin rows with the
-three bf16 planes of A (`ref.split_bf16`), ``cutvals_at`` by lookup in
-per-edge-row tables (`ref.cutvals_split_tables`). Their plain mirrors in
+The CUDA kernels compute the same functions as the plain versions by
+another route: ``cut_batch_dense`` as bf16 tensor-core products of the
+spin rows with the three bf16 planes of A (`ref.split_bf16`), ``cutvals``
+and ``cutvals_at`` by lookup in per-edge-row tables
+(`ref.cutvals_split_tables`), and the layer backward's ∂β as per-group
+tiles of pair products (`ref.beta_grad_groups`). Their plain mirrors in
 ``kernels/ref.py`` carry the algebra, and are held here against the plain
 versions and against the JAX package's Pallas kernels (interpret mode),
 with inputs made by numpy from a seed:
@@ -13,10 +14,12 @@ with inputs made by numpy from a seed:
   an exact integer in f32 whatever its order;
 - real weights: within the stated tolerances, ``CUT_BATCH_RTOL · Σ|A|``
   a cut value and ``CUTVALS_AT_RTOL · (Σ|w| + Σ|h|)`` of an edge row a
-  state (f32 sums of the same exact terms in another order).
+  state (f32 sums of the same exact terms in another order);
+- ∂β: within ``BETA_GRAD_RTOL · S`` a row, S the sum of the products'
+  magnitudes (`betagrad.tolerance`).
 
-The kernels are held against these mirrors bitwise on the card by
-``chip_smoke.py`` phase 2.
+The kernels are held against these mirrors on the card by
+``chip_smoke.py`` phase 2 (the cut kernels bitwise).
 """
 
 import jax.numpy as jnp
@@ -28,7 +31,7 @@ from repro.kernels import cutbatch as jax_cutbatch
 from repro.kernels import cutvals as jax_cutvals
 from repro_torch.core import engine
 from repro_torch.core.axis import LocalAxis
-from repro_torch.kernels import cutbatch, ref
+from repro_torch.kernels import betagrad, cutbatch, ref
 from repro_torch.kernels import cutvals as cutvals_mod
 
 
@@ -257,3 +260,97 @@ def test_index_bits_reads_the_largest_index():
     assert cutvals_mod.index_bits(_t(np.asarray([[5, 1], [2, 0]], np.int32))) == 3
     assert cutvals_mod.index_bits(_t(np.asarray([[8]], np.int32))) == 4
     assert cutvals_mod.index_bits(_views(12, 4)[1]) == 12
+
+
+# ---------------------------------------------------------------------------
+# cutvals: the fill kernel's mirror, every state in order
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [5, 8, 12, 14])
+@pytest.mark.parametrize("linear", [False, True])
+def test_cutvals_split_is_bitwise_on_integer_weights(n, linear):
+    """Below, at and above the split's 12 low bits, with integer linear rows."""
+    edges, w, lin = (_t(x) for x in _edge_rows(n, seed=90 + n))
+    lin = lin if linear else None
+    got = ref.cutvals_split(n, edges, w, lin)
+    assert got.shape == (3, 2**n)
+    assert torch.equal(got, ref.cutvals(n, edges, w, lin))
+    assert torch.equal(cutvals_mod.cutvals(n, edges, w, lin), ref.cutvals(n, edges, w, lin))
+
+
+@pytest.mark.parametrize("n", [5, 8, 12, 14])
+def test_cutvals_split_within_tolerance_on_real_weights(n):
+    edges, w, lin = (_t(x) for x in _edge_rows(n, seed=110 + n, real=True))
+    scale = w.abs().sum(1) + lin.abs().sum(1)
+    got = ref.cutvals_split(n, edges, w, lin)
+    err = (got - ref.cutvals(n, edges, w, lin)).abs().amax(1)
+    assert bool((err <= cutvals_mod.CUTVALS_AT_RTOL * scale).all()), err
+    e2, w2 = ref.append_linear_rows(edges, w, lin)  # the same rows, appended first
+    assert torch.equal(ref.cutvals_split(n, e2, w2), got)
+
+
+@pytest.mark.parametrize("n", [6, 9, 12])
+@pytest.mark.parametrize("real", [False, True])
+def test_cutvals_split_matches_pallas(n, real):
+    edges, w, lin = _edge_rows(n, seed=130 + n, real=real)
+    got = ref.cutvals_split(n, _t(edges), _t(w), _t(lin)).numpy()
+    for r in range(3):
+        want = np.asarray(jax_cutvals.cutvals(n, jnp.asarray(edges[r]), jnp.asarray(w[r]),
+                                              jnp.asarray(lin[r]), interpret=True))
+        if real:
+            tol = float(cutvals_mod.CUTVALS_AT_RTOL
+                        * (np.abs(w[r]).sum() + np.abs(lin[r]).sum()))
+            np.testing.assert_allclose(got[r], want, rtol=0, atol=tol)
+        else:
+            np.testing.assert_array_equal(got[r], want)
+
+
+# ---------------------------------------------------------------------------
+# ∂β: the kernel's groups of qubits
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lo,nbits", [(0, 24), (0, 26), (0, 5), (3, 9), (7, 7), (21, 3),
+                                      (12, 12), (2, 23)])
+def test_beta_grad_groups_cover_the_range_in_tiles(lo, nbits):
+    groups = ref.beta_grad_groups(lo, nbits)
+    assert groups[0][0] == lo
+    assert sum(k for _, k, _ in groups) == nbits
+    for (g0, k, y), nxt in zip(groups, groups[1:] + [(lo + nbits, 0, 0)]):
+        assert nxt[0] == g0 + k and 1 <= k <= 12
+        assert (2**g0) % y == 0 and 2**k * y <= ref.BETA_TILE
+        assert y >= min(2**g0, ref.BETA_LANES)  # rows of 32 lanes where Y allows
+    if (lo, nbits) == (0, 24):  # the main path's n: three passes
+        assert groups == [(0, 12, 1), (12, 7, 32), (19, 5, 128)]
+
+
+def _cotangents(n, seed, b=3):
+    rng = np.random.default_rng(seed)
+    planes = [rng.standard_normal((b, 2**n)).astype(np.float32) for _ in range(4)]
+    norm = np.sqrt((planes[2] ** 2 + planes[3] ** 2).sum(1, keepdims=True))
+    planes[2] /= norm  # the outputs are unit-norm states, as a mixer's are
+    planes[3] /= norm
+    return [_t(p) for p in planes]
+
+
+@pytest.mark.parametrize("n,lo,nbits", [(4, 0, 4), (9, 0, 9), (13, 0, 13), (14, 0, 14),
+                                        (10, 2, 7), (12, 5, 3), (14, 7, 7), (14, 9, 5)])
+def test_beta_grad_split_within_tolerance_of_the_plain_version(n, lo, nbits):
+    planes = _cotangents(n, seed=n + lo)
+    got = ref.beta_grad_split(*planes, lo, nbits)
+    want = ref.beta_grad(*planes, lo, nbits)
+    tol = betagrad.tolerance(*planes, lo, nbits)
+    assert got.dtype == torch.float32 and got.shape == (3,)
+    assert bool(((got - want).abs() <= tol).all()), (got - want, tol)
+    # the CPU branch of the wrapper is the plain version itself
+    assert torch.equal(betagrad.beta_grad(*planes, lo, nbits), want)
+
+
+def test_beta_grad_tolerance_is_the_sum_of_magnitudes():
+    """S = Σ_x Σ_q (|d_ore·oim'| + |d_oim·ore'|), here term by term."""
+    n, lo, nbits = 5, 1, 3
+    dr, di, o_re, o_im = (p.double() for p in _cotangents(n, seed=3))
+    x = torch.arange(2**n)
+    s = sum((dr * o_im[:, x ^ 2**q]).abs().sum(1) + (di * o_re[:, x ^ 2**q]).abs().sum(1)
+            for q in range(lo, lo + nbits))
+    got = betagrad.tolerance(*_cotangents(n, seed=3), lo, nbits)
+    torch.testing.assert_close(got.double(), betagrad.BETA_GRAD_RTOL * s, rtol=1e-6, atol=0)

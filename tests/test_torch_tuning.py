@@ -24,8 +24,8 @@ import pytest
 import torch
 
 from repro_torch.benchmarks import kernel_autotune as ka
-from repro_torch.kernels import (_build, cutbatch, cutvals, fused_layer, mixer,
-                                 ops, phase, tuning)
+from repro_torch.kernels import (_build, betagrad, cutbatch, cutvals, fused_layer,
+                                 mixer, ops, phase, ref, tuning)
 
 REPO = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
@@ -143,7 +143,7 @@ def _planes(b, *shape):
 
 
 def _launch_all(n=12, k=7, b=2):
-    """One launch of each of the eight entry points at small shapes; returns
+    """One launch of each of the nine wrappers at small shapes; returns
     {op key: per-row dim} as each wrapper keys its lookup."""
     dim, dk = 2**n, 2**k
     re, im, cutv = _planes(b, dim)
@@ -162,6 +162,7 @@ def _launch_all(n=12, k=7, b=2):
     idx = torch.zeros((2, 64), dtype=torch.int32)
     cutvals.cutvals_at(idx, edges, weights)
     cutbatch.cut_batch_dense(torch.ones((3, 50)), torch.zeros((50, 50)), 0.0)
+    betagrad.beta_grad(re, im, cutv, re, 0, n)
     return {"apply_phase": dim, "expectation": dim, "fused_layer": dim // dk,
             "mixer_matmul": dim // dk, "mixer_strided": 2 ** (n - 3),
             "cutvals": dim, "cutvals_at": 128, "cut_batch_dense": 50}
@@ -175,7 +176,7 @@ def _geometry(calls):
         "fused_layer": {"row_tile": calls["fused_layer"][-1][11]},
         "mixer_matmul": {"row_tile": calls["mixer_trailing"][-1][8]},
         "mixer_strided": {"tile_y": calls["mixer"][-1][9]},
-        "cutvals": dict(zip(("tile_b", "edge_chunk"), calls["cutvals"][-1][6:8])),
+        "cutvals": {"tile_b": calls["cutvals"][-1][5]},
         "cutvals_at": {"tile_b": calls["cutvals_at"][-1][8]},
         "cut_batch_dense": dict(zip(("batch_tile", "k_chunk"),
                                     calls["cut_batch_dense"][-1][11:13])),
@@ -184,8 +185,8 @@ def _geometry(calls):
 
 def test_wrappers_launch_builtin_geometry_with_tuning_off(recorder):
     """Today's constants: common.cuh kTile = 4096 amplitudes a mixer block
-    (4096 >> k rows, 2^(12-k) lanes), 256 states and 1024 staged edges a
-    cutvals block, 1024 states a cutvals_at block, 16384 amplitudes a pass-1
+    (4096 >> k rows, 2^(12-k) lanes), 1024 states a cutvals block and a
+    cutvals_at block, 16384 amplitudes a pass-1
     expectation block, 128 spin rows and 64 staged K a cut_batch_dense
     block."""
     ops.reset_launch_counts()
@@ -196,14 +197,35 @@ def test_wrappers_launch_builtin_geometry_with_tuning_off(recorder):
         "fused_layer": {"row_tile": 32},
         "mixer_matmul": {"row_tile": 32},
         "mixer_strided": {"tile_y": 8},  # 2^(12-3) = 512 clamped to Y = 8
-        "cutvals": {"tile_b": 256, "edge_chunk": 1024},
+        "cutvals": {"tile_b": 1024},
         "cutvals_at": {"tile_b": 1024},
         "cut_batch_dense": {"batch_tile": 128, "k_chunk": 64},
     }
     assert ops.launch_counts() == {
         "cutvals": 1, "cutvals_at": 1, "fused_phase_mixer_group": 1,
         "mixer_group_strided": 1, "mixer_group_trailing": 1, "expectation": 1,
-        "apply_phase": 1, "cut_batch_dense": 1}
+        "apply_phase": 1, "cut_batch_dense": 1, "beta_grad": 1}
+
+
+@pytest.mark.parametrize("n,lo,nbits,want", [
+    # (x_dim, k, y_dim, y_tile, row_parts, part0) a group pass
+    (14, 0, 14, [(4, 12, 1, 1, 8, 0), (1, 2, 4096, 1024, 8, 4)]),
+    (13, 2, 7, [(16, 7, 4, 4, 16, 0)]),
+    (16, 13, 3, [(1, 3, 8192, 512, 16, 0)]),
+    (16, 5, 11, [(16, 7, 32, 32, 32, 0), (1, 4, 4096, 256, 32, 16)]),
+])
+def test_beta_grad_launches_one_pass_per_group(recorder, n, lo, nbits, want):
+    """The ∂β wrapper hands each group of `ref.beta_grad_groups` to one
+    pass (its (B, X, 2^k, Y) view, lanes and slice of the partials), then
+    one final sum over a row's partials; one count a call."""
+    re = torch.zeros((2, 2**n))
+    ops.reset_launch_counts()
+    betagrad.beta_grad(re, re, re, re, lo, nbits)
+    assert [c[5:12] for c in recorder["beta_grad_group"]] == [(2, *g) for g in want]
+    assert recorder["beta_grad_final"][-1][2:4] == (2, want[0][4])
+    assert ops.launch_counts()["beta_grad"] == 1
+    assert [(g0, k, y) for g0, k, y in ref.beta_grad_groups(lo, nbits)] == [
+        (lo + sum(w[1] for w in want[:i]), g[1], g[3]) for i, g in enumerate(want)]
 
 
 @pytest.mark.parametrize("n", [16, 24, 26])
@@ -223,7 +245,7 @@ def test_wrappers_launch_the_override_with_tuning_on(recorder):
         "fused_layer": {"row_tile": 4},
         "mixer_matmul": {"row_tile": 8},
         "mixer_strided": {"tile_y": 4},
-        "cutvals": {"tile_b": 1024, "edge_chunk": 64},
+        "cutvals": {"tile_b": 512},
         "cutvals_at": {"tile_b": 64},
         "cut_batch_dense": {"batch_tile": 64, "k_chunk": 32},
     }
@@ -244,7 +266,7 @@ def test_wrappers_launch_the_override_with_tuning_on(recorder):
     ("mixer_matmul", {"row_tile": 3}),
     ("mixer_strided", {"tile_y": 1024}),  # 2^3 * 1024 > the shared tile
     ("cutvals", {"tile_b": 4096}),
-    ("cutvals", {"edge_chunk": 2048}),
+    ("cutvals", {"tile_b": 768}),  # not a power of two
     ("cutvals_at", {"tile_b": 16}),
     ("cutvals_at", {"tile_b": 4096}),
     ("cut_batch_dense", {"batch_tile": 256}),
@@ -307,7 +329,7 @@ def test_sweep_puts_the_default_first_and_never_loses_to_it(smoke_sweep):
         "mixer_matmul": {"row_tile": 8},  # 32 clamped to R = 2^3
         "fused_layer": {"row_tile": 8},
         "mixer_strided": {"tile_y": 128},  # 512 clamped to Y = 2^7
-        "cutvals": {"tile_b": 256, "edge_chunk": 1024},
+        "cutvals": {"tile_b": 1024},
         "cutvals_at": {"tile_b": 1024},
         "cut_batch_dense": {"batch_tile": 128, "k_chunk": 64},
     }
