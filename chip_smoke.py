@@ -35,6 +35,23 @@ runs these phases, each printing one line, failing on the first fault:
 13. the block-shape sweep (``repro_torch.benchmarks.kernel_autotune``) at
     full width, every candidate's output held against the default's, and
     the G(400, 0.1) solve with the swept table on and off;
+14. the 1-flip refinement and local search on the card: phase 4's merged
+    assignment refined for 200 steps (the CPU's flips, bitwise repeatable),
+    and a real-weight G(400, 0.1) (bitwise repeatable, within 1e-5·Σ|w| of
+    the CPU's value);
+15. the paper's headline instance, G(16000, 0.01), through
+    ``python -m repro_torch.examples.solve_16k --qubits 20``'s entry point:
+    843 subgraphs of 19-20 qubits in one batch, launch counts held against
+    the prediction, stage times, peak memory, the local-search reference,
+    and GW with the approximation ratio; kernels #1-#4 and ∂β held against
+    their plain versions at n = 20 first;
+16. QAOA² (signed contracted graphs through ``cutvals``) on the card against
+    the CPU, and at N = 24;
+17. the brute-force oracles on the card: n = 22 equal to the CPU's, n = 26
+    bounding the solve of the same instance;
+18. a solve under a recording tracer, exported in both formats and
+    validated, and the build ledger: one build event a CUDA source from
+    phase 1, none on a warm solve after ``reset()``;
 
 then one JSON line of per-kernel numbers, the nvidia-smi line, and
 ``{"ok": true, ...}`` as the last line. It exits non-zero, printing no
@@ -53,6 +70,10 @@ import time
 import numpy as np
 
 B_MAIN, N_MAIN, GROUP = 18, 24, 7  # the main path: G(400, 0.1) at N = 24
+# the headline: G(16000, 0.01) at N = 20, the largest budget whose whole
+# batch fits the card (N = 21 would need ~1.9x the amplitudes)
+V_16K, P_16K, N_16K, B_16K, ROWS_16K = 16_000, 0.01, 20, 843, 4
+N_BF_EQUAL, N_BF_BOUND = 22, 26  # the oracle phase: card = CPU; bound on a solve
 D_MESH, M_SHARDED = 4, 16  # the sharded path: mesh model=4, 16 subgraphs
 CPU_BAND = 0.02  # of Σ|w|: the default-steps band of tests/test_torch_core.py
 TIE_RTOL = 1e-6  # marginals this close count as a tie the last ulp may break
@@ -328,6 +349,26 @@ def predicted_sharded_launches(ops, dist_mod, axis, sizes, p, opt_steps, dev):
         want["mixer_group_strided"] += p * len(range(GROUP, n_local, GROUP)) * launches
         want[mix] += p * launches
     return want
+
+
+def predicted_solve_launches(cfg) -> dict:
+    """Launches of one single-device solve, per kernel, from the code's own
+    rules: 1 ``cutvals``; per Adam step a forward and a backward of p
+    layers, each 1 fused + one strided per group above the first, and 1
+    expectation and p ∂β; then the final evolve and expectation."""
+    p, steps = cfg.p_layers, cfg.opt_steps
+    groups_above = len(range(GROUP, cfg.n_qubits, GROUP))
+    return {
+        "cutvals": 1,
+        "cutvals_at": 0,
+        "fused_phase_mixer_group": steps * 2 * p + p,
+        "mixer_group_strided": (steps * 2 * p + p) * groups_above,
+        "mixer_group_trailing": 0,
+        "expectation": steps + 1,
+        "apply_phase": 0,
+        "cut_batch_dense": 0,
+        "beta_grad": steps * p,  # one a layer backward, p a step
+    }
 
 
 def flat_marginal(torch, qaoa_mod, ops, sub, n, cfg, dev):
@@ -755,6 +796,338 @@ def tuning_phase(torch, dev, graph, peak_key, root) -> dict:
     return counts
 
 
+def refine_phase(torch, graph, merged) -> None:
+    """Phase 14: `refine` of phase 4's merged assignment, 200 steps, on the
+    card twice and on the CPU (unit weights: equal flips); then a
+    real-weight G(400, 0.1), bitwise repeatable on the card and within
+    1e-5·Σ|w| of the CPU's value; `local_search` on the card and the CPU."""
+    from repro_torch.core.baselines.local_search import local_search, refine
+    from repro_torch.core.graph import Graph
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    steps = 200
+    (a1, v1), t_card = timed(lambda: refine(graph, merged, steps, device="cuda"))
+    a2, v2 = refine(graph, merged, steps, device="cuda")
+    (ac, vc), t_cpu = timed(lambda: refine(graph, merged, steps, device="cpu"))
+    flips = int((a1 != merged).sum())
+    check(np.array_equal(a1, a2) and v1 == v2, "refine is not bitwise repeatable on the card")
+    check(np.array_equal(a1, ac) and v1 == vc,
+          f"refine on the card ({v1}) differs from the CPU's ({vc}) on unit weights")
+    gw = Graph.erdos_renyi_weighted(400, 0.1, seed=0)
+    start = np.random.default_rng(14).integers(0, 2, 400).astype(np.int8)
+    (b1, w1), t_real = timed(lambda: refine(gw, start, steps, device="cuda"))
+    b2, w2 = refine(gw, start, steps, device="cuda")
+    _, wc = refine(gw, start, steps, device="cpu")
+    scale = float(gw.weights.abs().sum())
+    check(np.array_equal(b1, b2) and w1 == w2,
+          "refine on real weights is not bitwise repeatable on the card")
+    check(abs(w1 - wc) <= 1e-5 * scale, f"real-weight refine: card {w1} vs CPU {wc} "
+          f"beyond 1e-5 of sum|w| = {scale}")
+    s_card, c_card, rep = local_search(graph, restarts=2, steps=steps, device="cuda")
+    s_cpu, c_cpu, _ = local_search(graph, restarts=2, steps=steps, device="cpu")
+    check(np.array_equal(s_card, s_cpu) and c_card == c_cpu,
+          f"local_search card {c_card} vs CPU {c_cpu}")
+    print(f"[14 refine] G(400, 0.1) phase 4's merged cut refined {steps} steps: "
+          f"{flips} flips to {v1:.0f}, equal to the CPU's and bitwise repeatable | card "
+          f"{t_card * 1e3:.1f} ms, CPU {t_cpu * 1e3:.1f} ms | real weights: {w1:.4f} "
+          f"(CPU {wc:.4f}, tol {1e-5 * scale:.3g}), bitwise repeatable, card "
+          f"{t_real * 1e3:.1f} ms | local_search (2 restarts x {steps}): {c_card:.0f}, "
+          f"equal to the CPU's, card {rep.runtime_s:.3f} s")
+
+
+def n20_kernel_checks(torch, dev, part) -> str:
+    """Kernels #1-#4 and ∂β at the headline's n = 20 on its first rows,
+    against their plain versions: `cutvals` bitwise (unit weights); the
+    fused group [0, 7), the strided groups [7, 14) and [14, 20) (k = 6) and
+    the expectation on seeded unit-norm states; ∂β over all 20 qubits."""
+    from repro_torch.core import qaoa as qaoa_mod
+    from repro_torch.kernels import betagrad, fused_layer, mixer, ops, phase, ref
+
+    n, b = N_16K, ROWS_16K
+    edges, weights, _ = qaoa_mod.pad_subgraph_arrays(part.subgraphs[:b], n, device=dev)
+    cut = ops.cutvals(n, edges, weights)
+    want = ref.cutvals(n, edges, weights)
+    torch.cuda.synchronize()
+    check(torch.equal(cut, want), "cutvals at n = 20 differs from its plain version")
+    rng = np.random.default_rng(20)
+
+    def t(a):
+        return torch.as_tensor(a.astype(np.float32), device=dev)
+
+    re, im = t(rng.standard_normal((b, 2**n))), t(rng.standard_normal((b, 2**n)))
+    norm = torch.sqrt(torch.sum(re * re + im * im, dim=1, keepdim=True))
+    re, im = re / norm, im / norm
+    gamma, beta = t(rng.uniform(-1, 1, b)), t(rng.uniform(-1, 1, b))
+    errs = []
+    v3 = (b, 2**n // 2**GROUP, 2**GROUP)
+    for reverse in (False, True):
+        args = (re.view(v3), im.view(v3), cut.view(v3), gamma, beta, GROUP)
+        got = fused_layer.fused_phase_mixer_group(*args, reverse=reverse)
+        ref_ = fused_layer.fused_phase_mixer_group_plain(*args, reverse)
+        errs.append(max(float((x - y).abs().max()) for x, y in zip(got, ref_)))
+    for lo in range(GROUP, n, GROUP):  # the layer's groups: [7, 14), [14, 20)
+        k = min(GROUP, n - lo)
+        shape = (b, 2 ** (n - lo - k), 2**k, 2**lo)
+        got = mixer.mixer_group_strided(re.view(shape), im.view(shape), beta, k)
+        ref_ = ref.mixer_group(re.view(shape), im.view(shape), beta, k)
+        errs.append(max(float((x - y).abs().max()) for x, y in zip(got, ref_)))
+    torch.cuda.synchronize()
+    check(max(errs) <= 1e-5, f"state kernels at n = 20: max_abs_err {errs} > 1e-5")
+    exp = phase.expectation(re, im, cut)
+    exp_want = ref.expectation(re, im, cut)
+    # of the largest |<cut>|: a row of a sparse subgraph may have no edge
+    rel = float((exp - exp_want).abs().max() / exp_want.abs().max().clamp_min(1e-30))
+    check(rel <= 1e-5, f"expectation at n = 20: max rel err {rel} > 1e-5")
+    d_re, d_im = t(rng.standard_normal((b, 2**n))), t(rng.standard_normal((b, 2**n)))
+    bargs = (d_re, d_im, re, im, 0, n)
+    got = betagrad.beta_grad(*bargs)
+    tol = betagrad.tolerance(*bargs)
+    err = (got - ref.beta_grad(*bargs)).abs()
+    check(bool((err <= tol).all()), f"beta_grad at n = 20: {err.tolist()} > {tol.tolist()}")
+    check(torch.equal(got, betagrad.beta_grad(*bargs)), "beta_grad at n = 20 not repeatable")
+    del re, im, d_re, d_im, cut, want, got, ref_, bargs
+    torch.cuda.empty_cache()
+    return (f"n=20 on {b} rows: cutvals bitwise, fused (both directions) and strided "
+            f"[7, 14), [14, 20) (k=6) within {max(errs):.3g} (tol 1e-5), expectation "
+            f"{rel:.3g} rel, beta_grad in passes {ref.beta_grad_groups(0, n)} within "
+            f"{float(err.max()):.3g} (tol {float(tol.min()):.3g}), repeatable")
+
+
+def headline_phase(torch, dev, peak_key) -> None:
+    """Phase 15: G(16000, 0.01, seed 0) through the 16k example's entry
+    point at N = 20: the whole batch of 843 subgraphs in one program."""
+    from repro_torch.core import ParaQAOAConfig
+    from repro_torch.core.baselines import goemans_williamson
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.partition import partition_for_solver
+    from repro_torch.examples import solve_16k
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    graph = Graph.erdos_renyi(V_16K, P_16K, seed=0)
+    gen_s = time.perf_counter() - t0
+    part = partition_for_solver(graph, N_16K)
+    check(part.m == B_16K and set(part.sizes) <= {N_16K - 1, N_16K},
+          f"headline partition M={part.m}, sizes {sorted(set(part.sizes))}")
+    kernels_line = n20_kernel_checks(torch, dev, part)
+    print(f"[15 headline kernels] {kernels_line}")
+    del part
+
+    argv = ["--n", str(V_16K), "--p", str(P_16K), "--qubits", str(N_16K)]
+    args = solve_16k.build_parser().parse_args(argv)
+    cfg = ParaQAOAConfig(n_qubits=N_16K, top_k=args.k, p_layers=2,
+                         opt_steps=args.opt_steps, beam_width=64,
+                         refine_steps=args.refine)
+    predicted = predicted_solve_launches(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, ls_rep = solve_16k.main([*argv, "--device", "cuda"])
+    counts = ops.launch_counts()
+    main_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    total_w = float(graph.total_weight())
+    check(counts == predicted, f"headline launch counts {counts} != predicted {predicted}")
+    check(np.isfinite(out.cut_value) and out.cut_value > total_w / 2,
+          f"headline cut {out.cut_value} not above half the weight {total_w}")
+    check(out.partition.m == B_16K, f"the example partitioned into {out.partition.m}")
+    torch.cuda.empty_cache()
+    # GW's step: the reference's lr = 0.05 collapses every vector onto one
+    # line once lr times the mean degree passes 2 (here 160, so 8): the
+    # aligned state is then a fixed point of the projected step, and every
+    # hyperplane cuts nothing. lr = 1 / mean degree keeps the step as the
+    # reference's 0.05 is at a mean degree of 20
+    _, gw_default, _ = goemans_williamson(graph, steps=250, rounds=64, device="cuda")
+    lr = graph.n / (2.0 * total_w)
+    _, gw_cut, gw_rep = goemans_williamson(graph, steps=250, rounds=64, lr=lr,
+                                           device="cuda")
+    check(np.isfinite(gw_cut) and gw_cut > total_w / 2, f"GW cut {gw_cut} (lr {lr})")
+    print(f"[15 headline solve] G({V_16K}, {P_16K}, seed=0): {graph.n_edges} edges (generated "
+          f"in {gen_s:.1f} s) | N={N_16K} M={out.partition.m} K={cfg.top_k} p=2 "
+          f"steps={cfg.opt_steps} beam=64 refine={cfg.refine_steps} | cut "
+          f"{out.cut_value:.0f} of total weight {total_w:.0f} | "
+          + " ".join(f"{k}={v:.3f}s" for k, v in out.timings.items())
+          + f" | peak memory {peak_gb:.2f} GB | launches {counts} = predicted | "
+          f"local search (1 x 300): {ls_rep.cut_value:.0f} in {ls_rep.runtime_s:.3f} s | "
+          f"GW (r={gw_rep.extra['rank']}, 250 steps, 64 rounds, lr {lr:.6f} = 1 / mean "
+          f"degree): {gw_cut:.0f} in {gw_rep.runtime_s:.3f} s (at the default lr 0.05: "
+          f"{gw_default:.0f}) | AR vs GW {out.cut_value / gw_cut:.4f}, local search "
+          f"vs GW {ls_rep.cut_value / gw_cut:.4f} | the example's main() {main_s:.1f} s")
+    profile_solve(torch, graph, cfg, out.cut_value)
+    del graph, out
+    torch.cuda.empty_cache()
+
+
+def profile_solve(torch, graph, cfg, first_cut) -> None:
+    """Phase 15b: the headline solve again in this process (warm), under
+    torch.profiler: its stage times, and device time summed per kernel;
+    busy / wall gives the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import solve
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = solve(graph, cfg, device="cuda")
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    check(abs(again.cut_value - first_cut) <= CPU_BAND * float(graph.weights.abs().sum()),
+          f"warm headline cut {again.cut_value} vs {first_cut}")
+    rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    top = " | ".join(f"{name[:60]} {ms:.1f} ms x{count}" for ms, count, name in rows[:10])
+    print(f"[15b where the time goes] the headline solve again (warm, profiled): cut "
+          f"{again.cut_value:.0f}, " + " ".join(f"{k}={v:.3f}s" for k, v in again.timings.items())
+          + f" | wall {wall_s:.3f} s | kernels busy "
+          + (f"{busy:.1f} ms ({busy / 1e3 / wall_s:.1%} of the wall): {top}" if rows
+             else "not measured (the profiler saw no device events)"))
+    # the merge stage in its two halves, on the warm solve's own inputs:
+    # the plan (host numpy, edges bucketed by level) and the scan (card)
+    from repro_torch.core import merge as merge_mod
+    from repro_torch.core import paraqaoa as para_mod
+
+    t0 = time.perf_counter()
+    plan, bw = para_mod.merge_inputs(again.partition, again.candidates, cfg,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    merged = merge_mod.merge_scan(plan, bw)
+    score = float(merged.cut_value)
+    scan_s = time.perf_counter() - t0 - plan_s
+    print(f"[15b merge split] build_merge_plan {plan_s:.3f} s (host), merge_scan "
+          f"{scan_s:.3f} s over {again.partition.m} levels, beam {bw} (score {score:.0f})")
+    del again, prof, plan, merged
+    torch.cuda.empty_cache()
+
+
+def qaoa2_phase(torch, dev, graph) -> None:
+    """Phase 16: QAOA² on the card against the CPU on G(60, 0.3) at N = 10,
+    at N = 24 on G(400, 0.1); `cutvals` on a signed contraction of that
+    graph bitwise against its plain version."""
+    import importlib
+
+    from repro_torch.core import qaoa as qaoa_mod
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.partition import connectivity_preserving_partition
+    from repro_torch.kernels import ops, ref
+
+    q2 = importlib.import_module("repro_torch.core.baselines.qaoa_in_qaoa")
+    small = Graph.erdos_renyi(60, 0.3, seed=1)
+    _, cut_g, rep_g = q2.qaoa_in_qaoa(small, n_qubits=10, device="cuda")
+    _, cut_c, _ = q2.qaoa_in_qaoa(small, n_qubits=10, device="cpu")
+    scale = float(small.weights.abs().sum())
+    check(abs(cut_g - cut_c) <= CPU_BAND * scale,
+          f"QAOA² card {cut_g} vs CPU {cut_c} outside {CPU_BAND:.0%} of sum|w| = {scale}")
+    torch.cuda.synchronize()
+    _, cut_24, rep_24 = q2.qaoa_in_qaoa(graph, n_qubits=N_MAIN, device="cuda")
+    m = int(np.ceil(graph.n / (N_MAIN - 1)))
+    part = connectivity_preserving_partition(graph, m)
+    rng = np.random.default_rng(16)
+    bits = [rng.integers(0, 2, s).astype(np.int8) for s in part.sizes]
+    contracted, _ = q2._contract(graph, part.ranges, bits)
+    check(float(contracted.weights.min()) < 0, "the contraction has no negative weight")
+    e, w, _ = qaoa_mod.pad_subgraph_arrays([contracted], N_MAIN, device=dev)
+    got = ops.cutvals(N_MAIN, e, w)
+    check(torch.equal(got, ref.cutvals(N_MAIN, e, w)),
+          "cutvals on the signed contraction differs from its plain version")
+    print(f"[16 qaoa2] G(60, 0.3, seed=1) N=10: card {cut_g:.0f} ({rep_g.runtime_s:.3f} s), "
+          f"CPU {cut_c:.0f} (band {CPU_BAND:.0%} of sum|w| = {CPU_BAND * scale:.1f}) | "
+          f"G(400, 0.1, seed=0) N={N_MAIN}: {m} subgraphs + a {m}-node orientation, cut "
+          f"{cut_24:.0f} in {rep_24.runtime_s:.3f} s | cutvals on a signed contraction "
+          f"({contracted.n_edges} edges, weights {float(contracted.weights.min()):.0f} to "
+          f"{float(contracted.weights.max()):.0f}) padded to n={N_MAIN}: bitwise equal")
+    del got
+    torch.cuda.empty_cache()
+
+
+def oracle_phase(torch, dev) -> None:
+    """Phase 17: `brute_force_maxcut` at n = 22 on the card equal to the
+    CPU's; `brute_force_problem` at n = 26 on the card bounding the port's
+    solve of the same instance (MIS of G(26, 0.3)) from above."""
+    from repro_torch.core import ParaQAOAConfig, solve
+    from repro_torch.core.baselines import brute_force as bf
+    from repro_torch.core.graph import Graph, Problem, independent_set_violations
+
+    g_eq = Graph.erdos_renyi(N_BF_EQUAL, 0.3, seed=17)
+    a_g, v_g, rep_g = bf.brute_force_maxcut(g_eq, device="cuda")
+    a_c, v_c, rep_c = bf.brute_force_maxcut(g_eq, device="cpu")
+    check(np.array_equal(a_g, a_c) and v_g == v_c,
+          f"brute force n={N_BF_EQUAL}: card {v_g} vs CPU {v_c}")
+    mis = Problem.mis(Graph.erdos_renyi(N_BF_BOUND, 0.3, seed=17))
+    a26, opt, rep26 = bf.brute_force_problem(mis, device="cuda")
+    check(independent_set_violations(mis.graph, a26) == 0, "the exact MIS has a conflict")
+    out = solve(mis, ParaQAOAConfig(n_qubits=10, refine_steps=50), device="cuda")
+    check(out.cut_value <= opt + 1e-4 * max(1.0, abs(opt)),
+          f"the solve's value {out.cut_value} is above the exact optimum {opt}")
+    print(f"[17 oracle] brute_force_maxcut G({N_BF_EQUAL}, 0.3): cut {v_g:.0f}, card equal "
+          f"to the CPU (card {rep_g.runtime_s:.3f} s, CPU {rep_c.runtime_s:.3f} s) | "
+          f"brute_force_problem MIS G({N_BF_BOUND}, 0.3) over 2^{N_BF_BOUND}: optimum {opt:.0f} "
+          f"({rep26.runtime_s:.3f} s), the solve (N=10, refine 50) {out.cut_value:.0f} <= it")
+
+
+def obs_phase(torch, dev, graph, root) -> None:
+    """Phase 18: the G(400, 0.1) solve (N = 24, refine 200) under a
+    recording tracer, exported as JSON lines and Chrome events and
+    validated; the ledger's build events from phase 1, then none after
+    ``reset()`` on the warm solve, whose dispatches are all ``cuda``."""
+    from repro_torch.core import ParaQAOAConfig, solve
+    from repro_torch.kernels import _build, ops
+    from repro_torch.obs import get_ledger, validate
+    from repro_torch.obs.trace import Tracer, use_tracer
+
+    led = get_ledger()
+    builds = [(e.name, round(e.duration_s, 3)) for e in led.builds]
+    check([b[0] for b in builds] == list(_build.SOURCES),
+          f"ledger build events {builds}, expected one a source of {_build.SOURCES}")
+    led.reset()
+    cfg = ParaQAOAConfig(n_qubits=N_MAIN, refine_steps=200)
+    tracer = Tracer(record=True)
+    ops.reset_launch_counts()
+    with use_tracer(tracer):
+        out = solve(graph, cfg, device="cuda")
+    counts = ops.launch_counts()
+    check(counts == predicted_solve_launches(cfg), f"traced solve launches {counts}")
+    out_dir = os.path.join(root, "build", "obs")
+    os.makedirs(out_dir, exist_ok=True)
+    jsonl = tracer.export(os.path.join(out_dir, "chip_smoke_trace.jsonl"))
+    chrome = tracer.export(os.path.join(out_dir, "chip_smoke_trace.json"), "chrome")
+    with open(jsonl) as f:
+        errs = validate.validate_trace_jsonl(f.read())
+    with open(chrome) as f:
+        events = json.load(f)["traceEvents"]
+    records = [{"span_id": e["args"]["span_id"], "parent_id": e["args"].get("parent_id"),
+                "name": e["name"], "t0": e["ts"], "t1": e["ts"] + e["dur"],
+                "attrs": e["args"]} for e in events]
+    errs += validate.validate_trace_records(records)
+    check(not errs, f"trace violations: {errs}")
+    names = [s.name for s in tracer.spans]
+    check(names == ["partition", "solve_pool", "merge", "refine", "solve"],
+          f"span tree {names}")
+    snap = led.snapshot()
+    check(snap["builds"] == 0 and snap["compiles"] == 0,
+          f"the warm solve recorded {snap['builds']} builds")
+    check(all(k.endswith("[cuda]") for k in snap["op_traces"]),
+          f"dispatches off the card: {snap['op_traces']}")
+    print(f"[18 obs] G(400, 0.1) N={N_MAIN} refine 200 under a recording tracer: cut "
+          f"{out.cut_value:.0f}, spans {names}, refine_s {out.timings['refine_s']:.3f}, "
+          f"JSON lines and Chrome exports valid ({len(events)} events) | ledger: phase 1's "
+          f"build events {builds}; after reset() the warm solve recorded 0 builds, "
+          f"0 compiles, dispatches {snap['op_traces']}")
+
+
 def main() -> int:
     import torch
 
@@ -1086,19 +1459,8 @@ def main() -> int:
 
     # ---- 4. end to end at full width ----------------------------------------
     cfg = ParaQAOAConfig(n_qubits=N_MAIN)
-    groups_above = len(range(GROUP, N_MAIN, GROUP))
     p, steps = cfg.p_layers, cfg.opt_steps
-    predicted = {
-        "cutvals": 1,
-        "cutvals_at": 0,
-        "fused_phase_mixer_group": steps * 2 * p + p,
-        "mixer_group_strided": steps * 2 * p * groups_above + p * groups_above,
-        "mixer_group_trailing": 0,
-        "expectation": steps + 1,
-        "apply_phase": 0,
-        "cut_batch_dense": 0,
-        "beta_grad": steps * p,  # one a layer backward, p a step
-    }
+    predicted = predicted_solve_launches(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1195,7 +1557,14 @@ def main() -> int:
     for name in ("apply_phase", "cut_batch_dense"):
         results[name]["launches"] = sweep_counts[name]
 
-    # ---- 14. result lines -----------------------------------------------------
+    # ---- 14-18. refinement, the headline solve, QAOA², the oracle, obs --------
+    refine_phase(torch, graph, out.assignment)
+    headline_phase(torch, dev, peak_key)
+    qaoa2_phase(torch, dev, graph)
+    oracle_phase(torch, dev)
+    obs_phase(torch, dev, graph, root)
+
+    # ---- 19. result lines -----------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

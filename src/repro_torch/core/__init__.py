@@ -9,6 +9,7 @@ from repro_torch.core.partition import (
     Partition,
     connectivity_preserving_partition,
     partition_for_solver,
+    random_partition,
 )
 from repro_torch.core.pei import approximation_ratio, efficiency_factor, pei
 from repro_torch.core.distributed import sharded_qaoa, solve_distributed
@@ -23,6 +24,7 @@ __all__ = [
     "Partition",
     "connectivity_preserving_partition",
     "partition_for_solver",
+    "random_partition",
     "ParaQAOAConfig",
     "ParaQAOAOutput",
     "solve",

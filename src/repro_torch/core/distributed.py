@@ -27,7 +27,7 @@ from repro_torch.core import engine
 from repro_torch.core import paraqaoa as para_mod
 from repro_torch.core import qaoa as qaoa_mod
 from repro_torch.core.axis import LocalAxis, ProcessGroupAxis
-from repro_torch.core.graph import as_problem, problem_value
+from repro_torch.core.graph import as_problem
 from repro_torch.core.partition import partition_for_solver, split_linear
 from repro_torch.core.pei import SolveReport
 from repro_torch.device import resolve_device
@@ -149,7 +149,7 @@ def as_mesh(mesh_spec, device="cuda"):
         raise NotImplementedError(
             f"mesh axes {other}: only the `model` axis is ported; the data "
             "axis (solve_pool, merge_sharded, striped_beam_width, "
-            "global_winner) is still to do (ROADMAP.md, queue 1 item 7)")
+            "global_winner) is still to do (ROADMAP.md §1, the data-axis step)")
     d = int(spec["model"])
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         axis = ProcessGroupAxis.from_env(device)
@@ -170,7 +170,8 @@ def solve_distributed(graph, cfg: para_mod.ParaQAOAConfig, mesh_spec,
        batch, as in `solve`; the larger ones, grouped by qubit count, run
        through `sharded_qaoa_batch` at the linear-ramp angles, or after
        ``cfg.sharded_opt_steps`` Adam steps through the sharded evolution;
-    3. the single-device merge, then the re-score check of `solve`.
+    3. the single-device merge, then ``cfg.refine_steps`` 1-flip steps of
+       refinement and the re-score check of `solve`.
 
     ``mesh_spec`` as `as_mesh` takes it; None (or an empty mesh) runs the
     single-device `solve`. Runs on ``device`` (default the GPU; raises
@@ -180,10 +181,6 @@ def solve_distributed(graph, cfg: para_mod.ParaQAOAConfig, mesh_spec,
     axis = as_mesh(mesh_spec, dev)
     if axis is None:
         return para_mod.solve(graph, cfg, partition=partition, device=dev)
-    if cfg.refine_steps > 0:
-        raise NotImplementedError(
-            "refine_steps > 0: local-search refinement is not ported yet "
-            "(ROADMAP.md, queue 1)")
     prob = as_problem(graph)
     graph = prob.graph
     has_lin = prob.has_linear
@@ -240,15 +237,17 @@ def solve_distributed(graph, cfg: para_mod.ParaQAOAConfig, mesh_spec,
             assignment, cut, bw = para_mod.merge_candidates(
                 part, bit_indices, cfg, linear=lin_host, device=dev)
 
-    # the merge's incremental score must equal a from-scratch evaluation
-    obj = float(problem_value(prob, torch.as_tensor(assignment)))
-    internal = obj - prob.offset
-    assert abs(internal - cut) < 1e-2 * max(1.0, abs(internal)), (internal, cut)
+        # ---- optional beyond-paper refinement ----------------------------
+        with tr.span("refine", steps=cfg.refine_steps) as sp_refine:
+            assignment, cut = para_mod.refine_merged(part.graph, assignment, cut,
+                                                     cfg, lin_host, dev)
 
+    obj = para_mod.checked_value(prob, assignment, cut, cfg)
     timings = {
         "partition_s": sp_part.duration_s,
         "solve_s": sp_solve.duration_s,
         "merge_s": sp_merge.duration_s,
+        "refine_s": sp_refine.duration_s,
         "total_s": root.duration_s,
     }
     report = SolveReport(

@@ -92,6 +92,11 @@ class Graph:
     def total_weight(self) -> torch.Tensor:
         return torch.sum(self.weights)
 
+    def degree(self) -> torch.Tensor:
+        """(n,) float32 weighted degree: each vertex's incident weights
+        summed along its `incidence` row (a fixed order)."""
+        return incidence(self).weight.sum(dim=1)
+
     def dense_adjacency(self, device="cpu") -> torch.Tensor:
         """(n, n) float32 symmetric adjacency on ``device``; padding rows
         add weight 0 at (0, 0). Dense: n^2 floats (1 GB at n = 16,000)."""
@@ -209,6 +214,66 @@ def problem_value_batch(problem: Problem, assignments: torch.Tensor) -> torch.Te
     x = a.to(problem.linear.dtype)
     return (cut_value_batch(problem.graph, a) + x @ problem.linear.to(a.device)
             + problem.offset)
+
+
+@dataclasses.dataclass(frozen=True)
+class Incidence:
+    """Every vertex's incident edges as a padded (n, D) table, D the largest
+    degree (at least 1).
+
+    ``nbr[v, j]`` is the other end of v's j-th edge and ``weight[v, j]`` its
+    weight; padding slots hold vertex 0 and weight 0. A vertex's slots list
+    the edges it is the first end of, in edge order, then those it is the
+    second end of: the order of the reference's two scatter-adds. A sum
+    along the slot axis adds in that fixed order on every device, where a
+    scatter-add (``index_add_``) on CUDA adds in atomic order.
+    """
+
+    nbr: torch.Tensor  # (n, D) int64
+    weight: torch.Tensor  # (n, D) float32
+
+
+def incidence(graph: Graph, device="cpu") -> Incidence:
+    """The `Incidence` table of ``graph``'s real edges, built on the host
+    and placed on ``device``. A vertex of degree d holds d real slots, so
+    the table is n·D entries, D the largest degree."""
+    e = np.asarray(graph.edges)[: graph.n_edges].astype(np.int64)
+    w = np.asarray(graph.weights)[: graph.n_edges]
+    owner = np.concatenate([e[:, 0], e[:, 1]])
+    other = np.concatenate([e[:, 1], e[:, 0]])
+    ww = np.concatenate([w, w])
+    order = np.argsort(owner, kind="stable")
+    counts = np.bincount(owner, minlength=graph.n)
+    width = max(int(counts.max(initial=0)), 1)
+    starts = np.cumsum(counts) - counts
+    rows = owner[order]
+    slots = np.arange(rows.size) - starts[rows]
+    nbr = np.zeros((graph.n, width), dtype=np.int64)
+    wt = np.zeros((graph.n, width), dtype=np.float32)
+    nbr[rows, slots] = other[order]
+    wt[rows, slots] = ww[order]
+    return Incidence(nbr=torch.as_tensor(nbr, device=device),
+                     weight=torch.as_tensor(wt, device=device))
+
+
+def subgraph(graph: Graph, lo: int, hi: int, pad_to: int | None = None) -> Graph:
+    """Induced subgraph on the contiguous vertex range [lo, hi), relabelled
+    to [0, hi - lo). Host-side numpy, as partitioning is."""
+    e = np.asarray(graph.edges)[: graph.n_edges]
+    w = np.asarray(graph.weights)[: graph.n_edges]
+    m = (e[:, 0] >= lo) & (e[:, 0] < hi) & (e[:, 1] >= lo) & (e[:, 1] < hi)
+    return Graph.from_edges(hi - lo, e[m] - lo, w[m], pad_to=pad_to)
+
+
+def networkx_to_graph(nx_graph, pad_to: int | None = None) -> Graph:
+    """Convert a networkx graph (integer-labelled 0..n-1) to a `Graph`; an
+    edge without a ``weight`` attribute weighs 1."""
+    n = nx_graph.number_of_nodes()
+    edges, weights = [], []
+    for u, v, data in nx_graph.edges(data=True):
+        edges.append((u, v))
+        weights.append(float(data.get("weight", 1.0)))
+    return Graph.from_edges(n, edges, weights, pad_to=pad_to)
 
 
 def independent_set_violations(graph: Graph, assignment) -> int:

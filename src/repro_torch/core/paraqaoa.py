@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core import merge as merge_mod
 from repro_torch.core import qaoa as qaoa_mod
+from repro_torch.core.baselines.local_search import refine
 from repro_torch.core.graph import Graph, Problem, as_problem, problem_value
 from repro_torch.core.partition import Partition, partition_for_solver, split_linear
 from repro_torch.core.pei import SolveReport
@@ -43,7 +44,8 @@ class ParaQAOAConfig:
     # `distributed.solve_distributed`; 0 keeps the linear ramp. The
     # single-device `solve` has no oversized subproblems and never reads it
     sharded_opt_steps: int = 0
-    # beyond-paper 1-flip local-search refinement; not ported yet
+    # beyond-paper: 1-flip local-search steps on the merged assignment
+    # (`baselines.local_search.refine`); 0 skips the refinement
     refine_steps: int = 0
 
     def qaoa_config(self) -> qaoa_mod.QAOAConfig:
@@ -90,6 +92,29 @@ def merge_candidates(part: Partition, bit_indices: np.ndarray,
     return (merged.assignment.cpu().numpy(), float(merged.cut_value), bw)
 
 
+def refine_merged(graph: Graph, assignment: np.ndarray, cut: float,
+                  cfg: ParaQAOAConfig, linear, device):
+    """The refine stage: ``cfg.refine_steps`` 1-flip steps on the merged
+    assignment (with the internal objective's linear terms), or the merge's
+    result as it is at 0 steps. Returns (assignment, internal score)."""
+    if cfg.refine_steps == 0:
+        return assignment, cut
+    return refine(graph, assignment, cfg.refine_steps, linear=linear,
+                  device=device)
+
+
+def checked_value(prob: Problem, assignment: np.ndarray, cut: float,
+                  cfg: ParaQAOAConfig) -> float:
+    """The reported value: the full objective re-scored from scratch. Without
+    refinement the merge's incremental score must equal it on the internal
+    (offset-free) part; the refinement's own score is re-scored already."""
+    obj = float(problem_value(prob, torch.as_tensor(assignment)))
+    internal = obj - prob.offset
+    if cfg.refine_steps == 0:
+        assert abs(internal - cut) < 1e-2 * max(1.0, abs(internal)), (internal, cut)
+    return obj
+
+
 def solve(graph: Graph | Problem, cfg: ParaQAOAConfig = ParaQAOAConfig(),
           partition: Partition | None = None,
           device: str | torch.device = "cuda") -> ParaQAOAOutput:
@@ -102,10 +127,6 @@ def solve(graph: Graph | Problem, cfg: ParaQAOAConfig = ParaQAOAConfig(),
     value is the full objective including the offset.
     """
     dev = resolve_device(device)
-    if cfg.refine_steps > 0:
-        raise NotImplementedError(
-            "refine_steps > 0: local-search refinement is not ported yet "
-            "(ROADMAP.md, queue 1)")
     prob = as_problem(graph)
     graph = prob.graph
     has_lin = prob.has_linear
@@ -134,16 +155,17 @@ def solve(graph: Graph | Problem, cfg: ParaQAOAConfig = ParaQAOAConfig(),
             assignment, cut, bw = merge_candidates(part, bit_indices, cfg,
                                                    linear=lin_host, device=dev)
 
-    # the merge's incremental score must equal a from-scratch evaluation
-    # of the internal objective; the reported value adds the offset
-    obj = float(problem_value(prob, torch.as_tensor(assignment)))
-    internal = obj - prob.offset
-    assert abs(internal - cut) < 1e-2 * max(1.0, abs(internal)), (internal, cut)
+        # ---- optional beyond-paper refinement ----------------------------
+        with tr.span("refine", steps=cfg.refine_steps) as sp_refine:
+            assignment, cut = refine_merged(part.graph, assignment, cut, cfg,
+                                            lin_host, dev)
 
+    obj = checked_value(prob, assignment, cut, cfg)
     timings = {
         "partition_s": sp_part.duration_s,
         "solve_s": sp_solve.duration_s,
         "merge_s": sp_merge.duration_s,
+        "refine_s": sp_refine.duration_s,
         "total_s": root.duration_s,
     }
     report = SolveReport(

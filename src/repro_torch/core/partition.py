@@ -43,6 +43,27 @@ class Partition:
         return len(self.subgraphs)
 
 
+def alg1_ranges(n: int, m: int) -> List[tuple]:
+    """Paper Alg. 1 verbatim: s = floor(|V|/M) - 1, range i covers
+    [i*s, i*s + s + 1), the last range takes the remainder. It can
+    overflow the last partition past ceil(|V|/M) (|V| = 400, M = 16 gives
+    40 vertices), so `balanced_ranges` is the default; kept for fidelity
+    experiments."""
+    if m < 1:
+        raise ValueError("need at least one partition")
+    if m == 1:
+        return [(0, n)]
+    s = n // m - 1
+    if s < 1:
+        raise ValueError(f"partition size too small: |V|={n}, M={m}")
+    ranges = []
+    for i in range(1, m + 1):
+        start = (i - 1) * s
+        end = n if i == m else start + s + 1
+        ranges.append((start, end))
+    return ranges
+
+
 def balanced_ranges(n: int, m: int) -> List[tuple]:
     """Alg. 1 with the remainder spread over the partitions: every range
     gets floor(n/m) or ceil(n/m) fresh vertices (+1 shared vertex after the
@@ -68,10 +89,30 @@ def balanced_ranges(n: int, m: int) -> List[tuple]:
     return ranges
 
 
+def _contiguous_ranges(n: int, m: int, exact_alg1: bool = False) -> List[tuple]:
+    return alg1_ranges(n, m) if exact_alg1 else balanced_ranges(n, m)
+
+
 def connectivity_preserving_partition(graph: Graph, m: int,
                                       pad_edges: bool = True) -> Partition:
     """Paper Alg. 1: contiguous ranges with one shared vertex per boundary."""
-    return _build_partition(graph, balanced_ranges(graph.n, m), pad_edges)
+    return _build_partition(graph, _contiguous_ranges(graph.n, m), pad_edges)
+
+
+def random_partition(graph: Graph, m: int, seed: int,
+                     pad_edges: bool = True) -> Partition:
+    """QAOA²-style randomized partition (a baseline): a random vertex order
+    from ``seed``, then contiguous ranges over the shuffled labels. The
+    relabelled graph is the partition's ``graph``, so the chain and
+    shared-vertex contract of Alg. 1 holds and the merge is unchanged."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(graph.n).astype(np.int32)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(graph.n, dtype=np.int32)
+    e = np.asarray(graph.edges)[: graph.n_edges]
+    w = np.asarray(graph.weights)[: graph.n_edges]
+    relabelled = Graph.from_edges(graph.n, inv[e], w, pad_to=graph.edges.shape[0])
+    return _build_partition(relabelled, _contiguous_ranges(graph.n, m), pad_edges)
 
 
 def partition_for_solver(graph: Graph, max_qubits: int) -> Partition:
@@ -132,4 +173,15 @@ def split_linear(part: Partition, linear) -> List[np.ndarray]:
         idx = np.nonzero(level == i)[0]
         li[idx - lo] = lin[idx]
         out.append(li)
+    return out
+
+
+def stitch_assignments(part: Partition, local_bits: List[np.ndarray]) -> np.ndarray:
+    """Per-subgraph 0/1 assignments concatenated into one (n,) int8
+    assignment. Adjacent subgraphs share a vertex; the caller orients each
+    local bitstring so the shared vertex agrees, and the later subgraph's
+    value stands on the overlap."""
+    out = np.zeros(part.graph.n, dtype=np.int8)
+    for (lo, hi), bits in zip(part.ranges, local_bits):
+        out[lo:hi] = np.asarray(bits, dtype=np.int8)[: hi - lo]
     return out

@@ -12,6 +12,12 @@ table pass, the full-range fill and the indexed form; ``cutbatch.cu`` the
 split pass and the product; ``betagrad.cu`` the group passes and the
 final sum). Each wrapper bumps its op's count in
 `launches` once per call that launches its kernels.
+
+Each source built or loaded is a ``build`` event in the build ledger
+(`obs.ledger`): its key the source hash, its duration the time from its
+nvcc's start until the build was collected (the builds run in parallel)
+plus the library's load, or the load alone where an earlier build left
+the library.
 """
 
 from __future__ import annotations
@@ -23,6 +29,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from repro_torch.obs.clock import default_clock
+from repro_torch.obs.ledger import get_ledger
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -95,7 +104,8 @@ def build_all() -> dict[str, ctypes.CDLL]:
     """Compile (if needed) and load every kernel library; idempotent."""
     if len(_LIBS) == len(SOURCES):
         return _LIBS
-    out_dir = BUILD_ROOT / source_hash()
+    key = source_hash()
+    out_dir = BUILD_ROOT / key
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -107,10 +117,12 @@ def build_all() -> dict[str, ctypes.CDLL]:
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
-                       tmp, so)
+                       tmp, so, default_clock())
     failed = []
-    for name, (proc, tmp, so) in procs.items():
+    build_s = {}
+    for name, (proc, tmp, so, t0) in procs.items():
         log, _ = proc.communicate()
+        build_s[name] = default_clock() - t0
         (out_dir / f"{name}.log").write_text(log)  # ptxas: registers, spills
         if proc.returncode != 0:
             failed.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
@@ -119,7 +131,10 @@ def build_all() -> dict[str, ctypes.CDLL]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     for name in SOURCES:
+        t0 = default_clock()
         _LIBS[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+        get_ledger().note_build(name, key,
+                                build_s.get(name, 0.0) + default_clock() - t0)
     for source, fn_name, argtypes in SIGNATURES.values():
         fn = getattr(_LIBS[source], fn_name)
         fn.argtypes = argtypes

@@ -24,6 +24,10 @@ same kernels at negated angles:
 
 `cutvals`, `cutvals_at` and `cut_batch_dense` are forward only: no path
 differentiates them (as in the reference).
+
+Every entry point records its dispatch in the build ledger
+(`obs.ledger`, ``note_op``): ``cuda`` where its kernel launches, ``plain``
+where a CPU tensor takes the plain version.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 
 from repro_torch.kernels import _build, betagrad, cutbatch, fused_layer, mixer, phase
 from repro_torch.kernels import cutvals as cutvals_mod
+from repro_torch.obs.ledger import get_ledger
 
 # every kernel wrapper, by the name its launches are counted under
 KERNELS = (
@@ -56,8 +61,14 @@ def reset_launch_counts() -> None:
     _build.reset_launches()
 
 
+def _note(op: str, x) -> None:
+    """One dispatch of ``op`` on ``x``'s device, in the build ledger."""
+    get_ledger().note_op(op, "cuda" if x.is_cuda else "plain")
+
+
 def cutvals(n: int, edges, weights, linear=None):
     """(B, 2^n) objective values; ``linear`` (B, n) adds per-vertex terms."""
+    _note("cutvals", edges)
     return cutvals_mod.cutvals(n, edges, weights, linear)
 
 
@@ -65,12 +76,14 @@ def cutvals_at(idx, edges, weights, linear=None, *, n_bits=None):
     """(B·S, L) objective values of every edge row at the basis states of
     the (S, L) int32 table ``idx``; ``linear`` (B, n) adds per-vertex terms;
     ``n_bits``: every index lies below 2^n_bits (None reads idx.max())."""
+    _note("cutvals_at", idx)
     return cutvals_mod.cutvals_at(idx, edges, weights, linear, n_bits=n_bits)
 
 
 def cut_batch_dense(spins, adjacency, total_weight):
     """(B,) cut values of ±1 spin rows (B, V) through the dense (V, V)
     adjacency; forward only."""
+    _note("cut_batch_dense", spins)
     return cutbatch.cut_batch_dense(spins, adjacency, total_weight)
 
 
@@ -98,6 +111,7 @@ class _Phase(torch.autograd.Function):
 def apply_phase(re, im, cutv, gamma):
     """e^{-iγc}ψ on (B, 2^n) planes, γ (B,); differentiable in every
     argument."""
+    _note("apply_phase", re)
     return _Phase.apply(re, im, cutv, gamma)
 
 
@@ -164,6 +178,7 @@ class _Layer(torch.autograd.Function):
 def apply_layer(re, im, cutv, gamma, beta, n: int, group: int = 7):
     """One QAOA layer on (B, 2^n) planes: cost phase, then the n-qubit
     mixer; γ, β (B,). Differentiable in every tensor argument."""
+    _note("apply_layer", re)
     return _Layer.apply(re, im, cutv, gamma, beta, n, group)
 
 
@@ -188,12 +203,14 @@ class _MixerBits(torch.autograd.Function):
 
 def apply_mixer_bits(re, im, n: int, lo_bit: int, nbits: int, beta):
     """RX(2β)^{⊗nbits} on qubits [lo_bit, lo_bit + nbits), differentiable."""
+    _note("apply_mixer_bits", re)
     return _MixerBits.apply(re, im, beta, n, lo_bit, nbits)
 
 
 def apply_mixer(re, im, n: int, beta, group: int = 7):
     """The full n-qubit mixer as a chain of differentiable groups: the
     trailing kernel for qubits 0..group-1, the strided one above them."""
+    _note("apply_mixer", re)
     for g0 in range(0, n, group):
         re, im = apply_mixer_bits(re, im, n, g0, min(group, n - g0), beta)
     return re, im
@@ -215,4 +232,5 @@ class _Expectation(torch.autograd.Function):
 
 def expectation(re, im, cutv):
     """Σ|ψ|²·c per row, (B,); differentiable in every argument."""
+    _note("expectation", re)
     return _Expectation.apply(re, im, cutv)

@@ -346,3 +346,78 @@ def test_layer_backward_launches_the_beta_grad_kernel(cuda_device):
     out = ref.apply_mixer_bits(re, im, n, 3, 6, bp)
     (want,) = torch.autograd.grad(out[0].sum() - out[1].sum(), bp)
     torch.testing.assert_close(d_bits, want, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the refinement, the oracle and the headline solve's n = 20 shapes
+# ---------------------------------------------------------------------------
+
+def test_refine_on_the_card_repeats_and_equals_the_cpu(cuda_device):
+    """Unit weights: the card's flips equal the CPU's (integer gains);
+    real weights: two card runs give the same bits, the value within
+    1e-5·Σ|w| of the CPU's."""
+    from repro_torch.core.baselines.local_search import refine
+    from repro_torch.core.graph import Graph
+
+    rng = np.random.default_rng(0)
+    a0 = rng.integers(0, 2, 300).astype(np.int8)
+    g = Graph.erdos_renyi(300, 0.05, seed=1)
+    card = refine(g, a0, 150, device=cuda_device)
+    cpu = refine(g, a0, 150, device="cpu")
+    assert np.array_equal(card[0], cpu[0]) and card[1] == cpu[1]
+    gw = Graph.erdos_renyi_weighted(300, 0.05, seed=2)
+    runs = [refine(gw, a0, 150, device=cuda_device) for _ in range(2)]
+    assert np.array_equal(runs[0][0], runs[1][0]) and runs[0][1] == runs[1][1]
+    _, v_cpu = refine(gw, a0, 150, device="cpu")
+    assert abs(runs[0][1] - v_cpu) <= 1e-5 * float(gw.weights.abs().sum())
+
+
+@pytest.mark.parametrize("n", [12, 17])
+def test_brute_force_on_the_card_equals_the_cpu(cuda_device, n):
+    from repro_torch.core.baselines import brute_force
+    from repro_torch.core.graph import Graph, Problem
+
+    g = Graph.erdos_renyi(n, 0.4, seed=n)
+    card = brute_force.brute_force_maxcut(g, chunk_qubits=10, device=cuda_device)
+    cpu = brute_force.brute_force_maxcut(g, chunk_qubits=10, device="cpu")
+    assert np.array_equal(card[0], cpu[0]) and card[1] == cpu[1]
+    mis = Problem.mis(g)
+    card = brute_force.brute_force_problem(mis, chunk_qubits=10, device=cuda_device)
+    cpu = brute_force.brute_force_problem(mis, chunk_qubits=10, device="cpu")
+    assert np.array_equal(card[0], cpu[0]) and card[1] == cpu[1]
+
+
+def test_gw_on_the_card_repeats_bitwise(cuda_device):
+    from repro_torch.core.baselines import gw
+    from repro_torch.core.graph import Graph
+
+    g = Graph.erdos_renyi_weighted(200, 0.1, seed=3)
+    runs = [gw.goemans_williamson(g, steps=50, device=cuda_device) for _ in range(2)]
+    assert np.array_equal(runs[0][0], runs[1][0]) and runs[0][1] == runs[1][1]
+
+
+def test_state_kernels_at_the_headline_width(cuda_device):
+    """n = 20 as the 16,000-vertex solve runs it: the fused group [0, 7),
+    the strided groups [7, 14) and [14, 20) (k = 6), the expectation and ∂β
+    over all 20 qubits, each against its plain version."""
+    n = 20
+    re, im, cutv, g, b = _inputs(n, 2, 20, cuda_device)
+    v3 = (2, 2**n // 128, 128)
+    got = fused_layer.fused_phase_mixer_group(re.view(v3), im.view(v3), cutv.view(v3),
+                                              g, b, 7)
+    want = fused_layer.fused_phase_mixer_group_plain(re.view(v3), im.view(v3),
+                                                     cutv.view(v3), g, b, 7, False)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, atol=2e-5, rtol=0)
+    for lo, k in ((7, 7), (14, 6)):
+        shape = (2, 2 ** (n - lo - k), 2**k, 2**lo)
+        got = mixer.mixer_group_strided(re.view(shape), im.view(shape), b, k)
+        want = ref.mixer_group(re.view(shape), im.view(shape), b, k)
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, atol=2e-5, rtol=0)
+    torch.testing.assert_close(phase.expectation(re, im, cutv),
+                               ref.expectation(re, im, cutv), rtol=1e-5, atol=0)
+    d_re, d_im, _, _, _ = _inputs(n, 2, 21, cuda_device)
+    got = betagrad.beta_grad(d_re, d_im, re, im, 0, n)
+    tol = betagrad.tolerance(d_re, d_im, re, im, 0, n)
+    assert bool(((got - ref.beta_grad(d_re, d_im, re, im, 0, n)).abs() <= tol).all())
