@@ -31,7 +31,8 @@ runs these phases, each printing one line, failing on the first fault:
 9. the faithful and alternating swap schedules on one 26-qubit subgraph;
 10. 5 sharded Adam steps against 5 flat ones on that subgraph;
 11. chunk == 1 (n = 4, D = 4): the trailing-axis mixer on the path;
-12. two NCCL ranks against one process, where there are two cards;
+12. two NCCL ranks against one process, where there are two cards: the
+    sharded statevector, and a solve over mesh ``data=2``;
 13. the block-shape sweep (``repro_torch.benchmarks.kernel_autotune``) at
     full width, every candidate's output held against the default's, and
     the G(400, 0.1) solve with the swept table on and off;
@@ -52,6 +53,13 @@ runs these phases, each printing one line, failing on the first fault:
 18. a solve under a recording tracer, exported in both formats and
     validated, and the build ledger: one build event a CUDA source from
     phase 1, none on a warm solve after ``reset()``;
+19. the data axis on this card: G(300, 0.1) at N = 24 over mesh ``data=4``
+    against the single-device solve (bitwise candidates, the same cut and
+    assignment, the striped merge engaged, launches as predicted), the
+    ``single`` and ``striped`` merge policies, and ``data=2,model=4`` on
+    phase 7's partition against phases 7 and 8;
+20. the headline again through the example with ``--mesh data=4``
+    (candidates and cut equal to phase 15's), and with ``--merge striped``;
 
 then one JSON line of per-kernel numbers, the nvidia-smi line, and
 ``{"ok": true, ...}`` as the last line. It exits non-zero, printing no
@@ -75,6 +83,9 @@ B_MAIN, N_MAIN, GROUP = 18, 24, 7  # the main path: G(400, 0.1) at N = 24
 V_16K, P_16K, N_16K, B_16K, ROWS_16K = 16_000, 0.01, 20, 843, 4
 N_BF_EQUAL, N_BF_BOUND = 22, 26  # the oracle phase: card = CPU; bound on a solve
 D_MESH, M_SHARDED = 4, 16  # the sharded path: mesh model=4, 16 subgraphs
+# the data axis: G(300, 0.1) at N = 24 gives 14 subgraphs, so the exhaustive
+# merge (2·2^14 rows) fits the beam cap and data=4 stripes it
+V_DATA, P_DATA, M_DATA = 300, 0.1, 14
 CPU_BAND = 0.02  # of Σ|w|: the default-steps band of tests/test_torch_core.py
 TIE_RTOL = 1e-6  # marginals this close count as a tie the last ulp may break
 
@@ -98,6 +109,9 @@ KERNEL_META = {
     # no Pallas kernel: the jnp contraction XLA fuses in the layer's custom_vjp
     "beta_grad": ("src/repro_torch/kernels/csrc/betagrad.cu",
                   "src/repro/kernels/ops.py:291"),
+    # no Pallas kernel: the phase rule's jnp.sum(cutv * t) in the custom_vjp
+    "phase_grad": ("src/repro_torch/kernels/csrc/phase.cu",
+                   "src/repro/kernels/ops.py:431"),
 }
 DENSE_CHECK_ROWS = 64  # rows also scored through the edge list
 
@@ -355,7 +369,7 @@ def predicted_solve_launches(cfg) -> dict:
     """Launches of one single-device solve, per kernel, from the code's own
     rules: 1 ``cutvals``; per Adam step a forward and a backward of p
     layers, each 1 fused + one strided per group above the first, and 1
-    expectation and p ∂β; then the final evolve and expectation."""
+    expectation, p ∂β and p ∂γ; then the final evolve and expectation."""
     p, steps = cfg.p_layers, cfg.opt_steps
     groups_above = len(range(GROUP, cfg.n_qubits, GROUP))
     return {
@@ -368,6 +382,7 @@ def predicted_solve_launches(cfg) -> dict:
         "apply_phase": 0,
         "cut_batch_dense": 0,
         "beta_grad": steps * p,  # one a layer backward, p a step
+        "phase_grad": steps * p,  # likewise
     }
 
 
@@ -382,7 +397,8 @@ def flat_marginal(torch, qaoa_mod, ops, sub, n, cfg, dev):
 
 
 def sharded_solve_phases(torch, dev, graph) -> dict:
-    """Phases 7-10; returns phase 7's launch counts."""
+    """Phases 7-10; returns phase 7's launch counts, partition, cut and
+    candidates, and phase 8's flat cut and the rows it ties."""
     from repro_torch.core import ParaQAOAConfig, solve
     from repro_torch.core import distributed as dist_mod
     from repro_torch.core import engine, qaoa as qaoa_mod
@@ -468,6 +484,7 @@ def sharded_solve_phases(torch, dev, graph) -> dict:
           f"{flat.cut_value:.1f} vs sharded {out.cut_value:.1f} (rows whose candidates "
           f"differ by a tie within {TIE_RTOL:g}: {ties}) | flat solve_s "
           f"{flat.timings['solve_s']:.3f}s, peak memory {flat_gb:.2f} GB")
+    phase8 = {"flat_cut": flat.cut_value, "ties": ties}
     del flat
     torch.cuda.empty_cache()
 
@@ -525,7 +542,8 @@ def sharded_solve_phases(torch, dev, graph) -> dict:
           f"{t_sharded * 1e3:.1f} ms (peak {sharded_gb:.2f} GB), flat "
           f"{t_flat * 1e3:.1f} ms | gammas {[round(x, 5) for x in gs[0].tolist()]}")
     torch.cuda.empty_cache()
-    return counts
+    return {"counts": counts, "part": part, "cut": out.cut_value,
+            "candidates": out.candidates, "predicted": predicted, **phase8}
 
 
 def profile_sharded(torch, dist_mod, qaoa_mod, part, n, axis, cfg, dev, solve_s):
@@ -635,10 +653,24 @@ def _nccl_rank(rank: int, port: int, src: str, queue) -> None:
     with torch.no_grad():
         re, im, _ = engine.evolve(layout, cut, g0.expand(2, -1), b0.expand(2, -1))
     res = sharded_qaoa_batch(e, w, 20, g0, b0, axis, opt_steps=2)
+    sol = _nccl_data_solve("data=2")
     queue.put((rank, re.cpu().numpy(), im.cpu().numpy(),
-               *(x.cpu().numpy() for x in res)))
+               *(x.cpu().numpy() for x in res),
+               sol.cut_value, sol.assignment, sol.candidates,
+               sol.report.extra["merge_shards"]))
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _nccl_data_solve(spec: str):
+    """Phase 12's data-axis solve: G(60, 0.3, seed 1) at N = 10, 30 Adam
+    steps, on mesh ``spec``."""
+    from repro_torch.core import ParaQAOAConfig
+    from repro_torch.core.distributed import solve_distributed
+    from repro_torch.core.graph import Graph
+
+    return solve_distributed(Graph.erdos_renyi(60, 0.3, seed=1),
+                             ParaQAOAConfig(n_qubits=10), spec, device="cuda")
 
 
 def nccl_phase(torch, root: str) -> None:
@@ -680,9 +712,18 @@ def nccl_phase(torch, root: str) -> None:
     same_bits = all(np.array_equal(r[3], res.bitstrings.cpu().numpy()) for r in got)
     check(state_err <= 1e-6 and res_err <= 1e-6 and same_bits,
           f"NCCL vs LocalAxis: states {state_err}, results {res_err}, bits {same_bits}")
+    local = _nccl_data_solve("data=2")
+    for r in got:
+        cut, assignment, candidates, shards = r[8:]
+        check(cut == local.cut_value and np.array_equal(assignment, local.assignment)
+              and np.array_equal(candidates, local.candidates) and shards == 2,
+              f"rank {r[0]}: data=2 over NCCL cut {cut} ({shards} merge shards) vs "
+              f"LocalAxis {local.cut_value}")
     print(f"[12 nccl] 2 ranks x 2 subgraphs of 20 qubits: states within {state_err:.3g}, "
           f"probabilities, expectations and 2-step angles within {res_err:.3g} "
-          f"(tol 1e-6) of LocalAxis(2) on one card, candidates equal")
+          f"(tol 1e-6) of LocalAxis(2) on one card, candidates equal | mesh data=2 over "
+          f"NCCL, G(60, 0.3) N=10: cut {local.cut_value:.0f}, assignment and candidates "
+          f"equal to the one-process solve's on every rank, 2 merge shards")
 
 
 # the built-in launch geometry of every swept (op, bucket) at full width:
@@ -899,9 +940,10 @@ def n20_kernel_checks(torch, dev, part) -> str:
             f"{float(err.max()):.3g} (tol {float(tol.min()):.3g}), repeatable")
 
 
-def headline_phase(torch, dev, peak_key) -> None:
+def headline_phase(torch, dev, peak_key) -> dict:
     """Phase 15: G(16000, 0.01, seed 0) through the 16k example's entry
-    point at N = 20: the whole batch of 843 subgraphs in one program."""
+    point at N = 20: the whole batch of 843 subgraphs in one program.
+    Returns its cut, candidates, stage times, peak and predicted launches."""
     from repro_torch.core import ParaQAOAConfig
     from repro_torch.core.baselines import goemans_williamson
     from repro_torch.core.graph import Graph
@@ -962,8 +1004,12 @@ def headline_phase(torch, dev, peak_key) -> None:
           f"{gw_default:.0f}) | AR vs GW {out.cut_value / gw_cut:.4f}, local search "
           f"vs GW {ls_rep.cut_value / gw_cut:.4f} | the example's main() {main_s:.1f} s")
     profile_solve(torch, graph, cfg, out.cut_value)
+    phase15 = {"cut": out.cut_value, "candidates": out.candidates,
+               "timings": out.timings, "peak_gb": peak_gb, "predicted": predicted,
+               "argv": argv}
     del graph, out
     torch.cuda.empty_cache()
+    return phase15
 
 
 def profile_solve(torch, graph, cfg, first_cut) -> None:
@@ -1126,6 +1172,136 @@ def obs_phase(torch, dev, graph, root) -> None:
           f"JSON lines and Chrome exports valid ({len(events)} events) | ledger: phase 1's "
           f"build events {builds}; after reset() the warm solve recorded 0 builds, "
           f"0 compiles, dispatches {snap['op_traces']}")
+
+
+def timed_solve(torch, fn):
+    """``fn()`` from launch counts and the peak reset to zero; returns its
+    output, its launch counts and its peak in GB."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = fn()
+    counts = ops.launch_counts()
+    return out, counts, torch.cuda.max_memory_allocated() / 1e9
+
+
+def stage_line(out) -> str:
+    return " ".join(f"{k}={v:.3f}s" for k, v in out.timings.items())
+
+
+def data_axis_phase(torch, dev, graph400, phase7) -> None:
+    """Phase 19: the data axis on one card (every shard a `LocalAxis` row
+    block). G(300, 0.1) at N = 24, K = 2: ``solve_distributed`` over
+    ``data=4`` against `solve` on the same partition (bitwise candidates,
+    the same cut and assignment, the striped merge engaged, launches equal
+    to the prediction), the ``single`` and ``striped`` merge policies on
+    the same instance; then ``data=2,model=4`` at opt_steps=0 on phase 7's
+    partition against phase 7's ``model=4`` solve (bitwise candidates, the
+    same cut) and phase 8's flat solve at N = 26 (the same cut up to the
+    rows phase 8 found tied)."""
+    from repro_torch.core import ParaQAOAConfig, solve
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.partition import partition_for_solver
+
+    graph = Graph.erdos_renyi(V_DATA, P_DATA, seed=0)
+    part = partition_for_solver(graph, N_MAIN)
+    check(part.m == M_DATA and max(part.sizes) <= N_MAIN,
+          f"data-axis partition M={part.m}, sizes {sorted(set(part.sizes))}")
+    cfg = ParaQAOAConfig(n_qubits=N_MAIN, top_k=2)
+    predicted = predicted_solve_launches(cfg)
+    single, c_single, gb_single = timed_solve(
+        torch, lambda: solve(graph, cfg, partition=part, device="cuda"))
+    check(c_single == predicted, f"single solve launches {c_single} != {predicted}")
+    runs = {}
+    for mode in ("auto", "single", "striped"):
+        out, counts, gb = timed_solve(torch, lambda: dist_mod.solve_distributed(
+            graph, cfg, f"data={D_MESH}", partition=part, merge_mode=mode,
+            device="cuda"))
+        check(counts == predicted, f"data={D_MESH} {mode}: launches {counts} != {predicted}")
+        check(np.array_equal(out.candidates, single.candidates),
+              f"data={D_MESH} {mode}: candidates differ from the single solve's in rows "
+              f"{np.nonzero((out.candidates != single.candidates).any(1))[0].tolist()}")
+        runs[mode] = (out, gb)
+    auto, _ = runs["auto"]
+    extra = auto.report.extra
+    check(extra["merge_shards"] == D_MESH, f"auto merged on {extra['merge_shards']} shards")
+    check(auto.cut_value == single.cut_value
+          and np.array_equal(auto.assignment, single.assignment),
+          f"data={D_MESH} cut {auto.cut_value} vs single {single.cut_value}")
+    check(runs["single"][0].report.extra["merge_shards"] == 1, "single merged striped")
+    total_w = float(graph.total_weight())
+    print(f"[19 data axis] G({V_DATA}, {P_DATA}, seed=0) N={N_MAIN} K=2 p=3 steps=30, "
+          f"M={part.m} (sizes {sorted(set(part.sizes))}), beam {extra['beam']}: mesh "
+          f"data={D_MESH} ({extra['axis']}) candidates bitwise equal to solve()'s, cut "
+          f"{auto.cut_value:.0f} = {single.cut_value:.0f} of {total_w:.0f}, assignment "
+          f"equal, launches {c_single} = predicted | single solve: {stage_line(single)}, "
+          f"peak {gb_single:.2f} GB | "
+          + " | ".join(f"merge {m}: {o.report.extra['merge_shards']} shards x "
+                       f"{o.report.extra['merge_per_shard_beam']} rows, cut "
+                       f"{o.cut_value:.0f}, {stage_line(o)}, peak {gb:.2f} GB"
+                       for m, (o, gb) in runs.items()))
+    del runs, auto, single
+    torch.cuda.empty_cache()
+
+    # data x model on phase 7's partition: the sharded subproblems once
+    cfg0 = ParaQAOAConfig(n_qubits=N_MAIN, top_k=2, p_layers=3, opt_steps=0,
+                          sharded_opt_steps=0)
+    out, counts, gb = timed_solve(torch, lambda: dist_mod.solve_distributed(
+        graph400, cfg0, f"data=2,model={D_MESH}", partition=phase7["part"],
+        device="cuda"))
+    extra = out.report.extra
+    check(counts == phase7["predicted"],
+          f"data=2,model={D_MESH} launches {counts} != {phase7['predicted']}")
+    check(np.array_equal(out.candidates, phase7["candidates"])
+          and out.cut_value == phase7["cut"],
+          f"data=2,model={D_MESH} cut {out.cut_value} vs model={D_MESH} {phase7['cut']}")
+    check(extra["merge_shards"] == 2, f"merged on {extra['merge_shards']} shards")
+    check(out.cut_value == phase7["flat_cut"] or phase7["ties"],
+          f"cut {out.cut_value} vs the flat N={N_MAIN + 2} {phase7['flat_cut']} with no tie")
+    print(f"[19 data x model] G(400, 0.1) mesh data=2,model={D_MESH} ({extra['axis']}) "
+          f"opt_steps=0 on phase 7's partition: {extra['sharded_subproblems']} sharded, "
+          f"merge 2 shards x {extra['merge_per_shard_beam']} rows | cut {out.cut_value:.0f}, "
+          f"candidates bitwise equal to model={D_MESH}'s (cut {phase7['cut']:.0f}); flat "
+          f"N={N_MAIN + 2}: {phase7['flat_cut']:.0f} (rows tied in phase 8: "
+          f"{phase7['ties']}) | launches = phase 7's | {stage_line(out)}, peak {gb:.2f} GB")
+    del out
+    torch.cuda.empty_cache()
+
+
+def headline_data_phase(torch, phase15) -> None:
+    """Phase 20: the headline through ``python -m repro_torch.examples.solve_16k
+    --qubits 20 --mesh data=4``'s entry point (candidates and cut equal to
+    phase 15's, launches equal to its prediction), then with ``--merge
+    striped`` (the paper's independent workers; reported, not held)."""
+    from repro_torch.examples import solve_16k
+
+    argv = [*phase15["argv"], "--mesh", f"data={D_MESH}", "--device", "cuda"]
+    lines = []
+    for merge in ("auto", "striped"):
+        (out, ls_rep), counts, gb = timed_solve(
+            torch, lambda: solve_16k.main([*argv, "--merge", merge]))
+        extra = out.report.extra
+        check(counts == phase15["predicted"],
+              f"headline data={D_MESH} {merge}: launches {counts} != {phase15['predicted']}")
+        check(np.array_equal(out.candidates, phase15["candidates"]),
+              f"headline data={D_MESH} {merge}: candidates differ from phase 15's")
+        if merge == "auto":
+            check(out.cut_value == phase15["cut"],
+                  f"headline data={D_MESH} cut {out.cut_value} vs phase 15 {phase15['cut']}")
+        lines.append(f"--merge {merge}: cut {out.cut_value:.0f}, merge "
+                     f"{extra['merge_shards']} shards x {extra['merge_per_shard_beam']} "
+                     f"rows, {stage_line(out)}, peak {gb:.2f} GB")
+        del out
+        torch.cuda.empty_cache()
+    print(f"[20 headline data={D_MESH}] G({V_16K}, {P_16K}) N={N_16K} through the "
+          f"example's entry point: candidates bitwise equal to phase 15's, launches = "
+          f"predicted | " + " | ".join(lines) + f" | phase 15: cut {phase15['cut']:.0f}, "
+          f"{' '.join(f'{k}={v:.3f}s' for k, v in phase15['timings'].items())}, peak "
+          f"{phase15['peak_gb']:.2f} GB")
 
 
 def main() -> int:
@@ -1337,6 +1513,39 @@ def main() -> int:
           f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
     del got, want, again
 
+    # ∂γ of the phase rule: within 1e-5 of the plain version relative to
+    # Σ|c·t| a row, bitwise repeatable, and each row's bits the same in a
+    # batch of 1 and of 16 as in the batch of 18 (a torch reduction takes
+    # its block shape and split from the row count)
+    g_re = torch.as_tensor(rng.standard_normal((B_MAIN, dim), dtype=np.float32), device=dev)
+    g_im = torch.as_tensor(rng.standard_normal((B_MAIN, dim), dtype=np.float32), device=dev)
+    got = phase.phase_grad(re, im, g_re, g_im, cutv)
+    want = ref.phase_grad(re, im, g_re, g_im, cutv)
+    scale = torch.sum((cutv * (im * g_re - re * g_im)).abs(), dim=-1)
+    rel = float(((got - want).abs() / scale).max())
+    check(rel <= 1e-5, f"phase_grad max err {rel} of sum|c t| > 1e-5")
+    check(torch.equal(got, phase.phase_grad(re, im, g_re, g_im, cutv)),
+          "phase_grad is not bitwise repeatable")
+    for rows in (slice(0, 1), slice(2, 18)):
+        part = phase.phase_grad(re[rows], im[rows], g_re[rows], g_im[rows], cutv[rows])
+        check(torch.equal(part, got[rows]), f"phase_grad rows {rows} differ alone")
+    plain_rows = [ref.phase_grad(re[r], im[r], g_re[r], g_im[r], cutv[r])
+                  for r in (slice(0, 1), slice(2, 18))]
+    plain_moves = not (torch.equal(plain_rows[0], want[0:1])
+                       and torch.equal(plain_rows[1], want[2:18]))
+    ms = time_ms(torch, lambda: phase.phase_grad(re, im, g_re, g_im, cutv), 10)
+    plain = time_ms(torch, lambda: ref.phase_grad(re, im, g_re, g_im, cutv), 3)
+    record("phase_grad", float((got - want).abs().max()), ms, plain,
+           bytes_=20 * amps, flops=4 * amps)
+    r = results["phase_grad"]
+    print(f"[2 kernel phase_grad] (B, 2^n)=({B_MAIN}, {dim}) | max err {rel:.3g} of "
+          f"sum|c t| (tol 1e-5), bitwise repeatable, rows [0, 1) and [2, 18) alone "
+          f"bitwise equal to the batch's (the plain torch.sum's bits "
+          f"{'move' if plain_moves else 'do not move'} with the batch here) | kernel "
+          f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+          f"({r['bound_by']})")
+    del got, want, scale, g_re, g_im, plain_rows
+
     err, tol = planes_err(phase.apply_phase(re, im, cutv, gamma),
                           ref.apply_phase(re, im, cutv, gamma))
     torch.cuda.synchronize()
@@ -1451,9 +1660,12 @@ def main() -> int:
     bg_launches = ops.launch_counts()["beta_grad"]
     check(bg_launches == 2, f"{bg_launches} beta_grad launches in phase 3, expected 2 "
           "(the layer's backward and the mixer group's)")
+    pg_launches = ops.launch_counts()["phase_grad"]
+    check(pg_launches == 2, f"{pg_launches} phase_grad launches in phase 3, expected 2 "
+          "(the layer's backward and the phase's)")
     print(f"[3 grads] B={bg} n={ng}, per-row angles, max rel err vs plain autograd "
-          f"(tol 1e-4), dbeta through the beta_grad kernel ({bg_launches} launches) | "
-          + " | ".join(parts))
+          f"(tol 1e-4), dbeta through the beta_grad kernel ({bg_launches} launches), "
+          f"dgamma through the phase_grad kernel ({pg_launches}) | " + " | ".join(parts))
     del base, w_re, w_im
     torch.cuda.empty_cache()
 
@@ -1547,8 +1759,8 @@ def main() -> int:
           f"equal (tied rows {ties}), value card {val_g} CPU {val_c}")
 
     # ---- 7-12. the sharded statevector (mesh model=4) ------------------------
-    counts7 = sharded_solve_phases(torch, dev, graph)
-    results["cutvals_at"]["launches"] = counts7["cutvals_at"]
+    phase7 = sharded_solve_phases(torch, dev, graph)
+    results["cutvals_at"]["launches"] = phase7["counts"]["cutvals_at"]
     results["mixer_group_trailing"]["launches"] = chunk_one_phase(torch, dev)
     nccl_phase(torch, root)
 
@@ -1559,12 +1771,16 @@ def main() -> int:
 
     # ---- 14-18. refinement, the headline solve, QAOA², the oracle, obs --------
     refine_phase(torch, graph, out.assignment)
-    headline_phase(torch, dev, peak_key)
+    phase15 = headline_phase(torch, dev, peak_key)
     qaoa2_phase(torch, dev, graph)
     oracle_phase(torch, dev)
     obs_phase(torch, dev, graph, root)
 
-    # ---- 19. result lines -----------------------------------------------------
+    # ---- 19-20. the data axis on one card -------------------------------------
+    data_axis_phase(torch, dev, graph, phase7)
+    headline_data_phase(torch, phase15)
+
+    # ---- result lines ---------------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

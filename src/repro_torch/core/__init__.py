@@ -1,7 +1,7 @@
 """ParaQAOA core in PyTorch: graphs, partition, batched QAOA, merge, solve,
-and the solve with a `model` mesh axis."""
+and the solve on a device mesh."""
 
-from repro_torch.core.axis import LocalAxis, ProcessGroupAxis
+from repro_torch.core.axis import LocalAxis, Mesh, ProcessGroupAxis
 from repro_torch.core.graph import (Graph, Problem, as_problem, cut_value, cut_value_batch,
                                     problem_value)
 from repro_torch.core.paraqaoa import ParaQAOAConfig, ParaQAOAOutput, solve
@@ -12,7 +12,8 @@ from repro_torch.core.partition import (
     random_partition,
 )
 from repro_torch.core.pei import approximation_ratio, efficiency_factor, pei
-from repro_torch.core.distributed import sharded_qaoa, solve_distributed
+from repro_torch.core.distributed import (merge_sharded, sharded_qaoa, solve_distributed,
+                                          solve_pool)
 
 __all__ = [
     "Graph",
@@ -29,8 +30,11 @@ __all__ = [
     "ParaQAOAOutput",
     "solve",
     "solve_distributed",
+    "solve_pool",
     "sharded_qaoa",
+    "merge_sharded",
     "LocalAxis",
+    "Mesh",
     "ProcessGroupAxis",
     "approximation_ratio",
     "efficiency_factor",

@@ -1,38 +1,49 @@
-"""ParaQAOA with a `model` mesh axis: the sharded statevector (the port of
-``repro/core/distributed.py:150-333`` and ``:400-678``, model axis only).
+"""ParaQAOA on a device mesh (the port of ``repro/core/distributed.py``).
 
-`sharded_qaoa` runs one n-qubit QAOA circuit with its 2^n amplitudes
-sharded over the D shards of a `core.axis` axis: only the h = log2(D)
-"global" qubits need mixing across shards, and one qubit swap a layer
-rotates them into locality. That lifts the per-device qubit cap N to
-N + h. `sharded_qaoa_batch` runs a batch of same-n subgraphs as rows,
-as many per launch as the card holds. `solve_distributed` is the solve
-with a mesh: partition at the lifted budget, subgraphs of N qubits or
-fewer through the single-device batch, the larger ones grouped by n
-through `sharded_qaoa_batch`, then the single-device merge.
+Three programs over the axes of a `core.axis.Mesh`, and the solve that
+wires them together:
 
-The `data` (and `pod`) axes, `solve_pool`, `merge_sharded`,
-`striped_beam_width` and `global_winner`, are not ported (ROADMAP.md).
+1. `solve_pool`: the solver pool, the paper's "N_s QAOA solvers × T
+   rounds", with the subgraph batch split over the `data` (and `pod`)
+   axes. In one process every shard's rows run as one batch, one launch
+   per op; over ranks each rank solves its contiguous block of rows and
+   the results are gathered.
+2. `sharded_qaoa`: one n-qubit QAOA circuit with its 2^n amplitudes
+   sharded over the D shards of the `model` axis: only the h = log2(D)
+   "global" qubits need mixing across shards, and one qubit swap a layer
+   rotates them into locality. That lifts the per-device qubit cap N to
+   N + h. `sharded_qaoa_batch` runs a batch of same-n subgraphs as rows,
+   as many per launch as the card holds.
+3. `merge_sharded`: the merge frontier striped over the innermost data
+   axis at the paper's level L; `merge.global_winner` picks the best
+   stripe.
+
+`solve_distributed` partitions at the lifted budget, solves the subgraphs
+of N qubits or fewer through the pool and the larger ones, grouped by n,
+through `sharded_qaoa_batch`, then merges striped or on one device as
+``merge_mode`` says.
 """
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import engine
+from repro_torch.core import merge as merge_mod
 from repro_torch.core import paraqaoa as para_mod
 from repro_torch.core import qaoa as qaoa_mod
-from repro_torch.core.axis import LocalAxis, ProcessGroupAxis
+from repro_torch.core.axis import LocalAxis, Mesh, ProcessGroupAxis
 from repro_torch.core.graph import as_problem
 from repro_torch.core.partition import partition_for_solver, split_linear
 from repro_torch.core.pei import SolveReport
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import parse_mesh_spec
+from repro_torch.launch.mesh import build_mesh, parse_mesh_spec
 from repro_torch.obs import trace as trace_mod
+
+MERGE_MODES = ("auto", "striped", "single")
 
 # device bytes per amplitude a subgraph holds at its peak: two cut views
 # and three live state pairs without autograd; with it, each layer saves
@@ -133,73 +144,131 @@ def sharded_qaoa(edges, weights, n: int, gammas, betas, axis, top_k: int = 4,
     return ShardedQAOAResult(*(x[0] for x in res))
 
 
+def solve_pool(edges, weights, masks, cfg: qaoa_mod.QAOAConfig, mesh,
+               axes=("data",), linears=None) -> qaoa_mod.QAOAResult:
+    """The subgraph batch solved over the mesh's batch ``axes``.
+
+    Pads the batch to a multiple of their product with empty rows (mask 1,
+    no edges, zero linear terms). Shard d takes the d-th contiguous block
+    of rows, as ``shard_map``'s ``P(axes)`` lays them out. In one process
+    every shard's rows run as one batch; over ranks each rank solves its
+    block and every field is gathered. The padding is stripped after the
+    gather. ``mesh`` is a `Mesh` or what `as_mesh` takes; ``linears``
+    (B, n_qubits) optional per-vertex terms. Returns the `QAOAResult` of
+    `qaoa.solve_subgraph_batch` on the same rows, the same on every rank.
+    """
+    mesh = as_mesh(mesh, edges.device)
+    pool = mesh.over(axes)
+    m = edges.shape[0]
+    pad = -m % pool.size
+    if pad:
+        def grow(x, fill):
+            return torch.cat([x, x.new_full((pad, *x.shape[1:]), fill)])
+
+        edges, weights, masks = grow(edges, 0), grow(weights, 0), grow(masks, 1)
+        linears = None if linears is None else grow(linears, 0)
+    per = (m + pad) // pool.size
+    rows = slice(pool.offset * per, (pool.offset + pool.local) * per)
+    res = qaoa_mod.solve_subgraph_batch(
+        edges[rows], weights[rows], masks[rows], cfg,
+        linear=None if linears is None else linears[rows])
+    return qaoa_mod.QAOAResult(*(pool.gather_rows(x)[:m] for x in res))
+
+
+def merge_sharded(plan: merge_mod.MergePlan, beam_width: int, mesh,
+                  axis: str = "data", split_level: int = 1):
+    """The merge frontier striped over the mesh's ``axis`` at
+    ``split_level``: each of its D shards sweeps its own stripe of
+    ``beam_width`` rows (the global frontier is D × beam_width, the
+    paper's 2K^L workers), and `merge.global_winner` picks the best. The
+    stripes of one process sweep together. Returns (assignment (V,) int8,
+    value), the same on every rank."""
+    ax = as_mesh(mesh, plan.lo.device).axes[axis]
+    ids = ax.shard_ids(plan.lo.device)
+    res = merge_mod.merge_scan(plan, beam_width, shard_id=ids,
+                               n_shards=ax.size, split_level=split_level)
+    return merge_mod.global_winner(res, ax, ids)
+
+
 def as_mesh(mesh_spec, device="cuda"):
-    """The model axis a mesh spec asks for: a `LocalAxis` in one process,
-    a `ProcessGroupAxis` under a launcher that sets ``WORLD_SIZE`` > 1;
-    None for no mesh. ``mesh_spec`` is an axis, a ``"model=4"`` string,
-    a parsed ``{"model": 4}`` dict, or None."""
-    if mesh_spec is None or isinstance(mesh_spec, (LocalAxis, ProcessGroupAxis)):
+    """The `Mesh` a spec asks for, None for no mesh. ``mesh_spec`` is a
+    `Mesh`, a ``"data=2,model=4"`` string, a parsed ``{"data": 2}`` dict,
+    a lone axis (taken as the `model` axis), or None. In one process every
+    axis is a `LocalAxis`; under a launcher that sets ``WORLD_SIZE`` > 1
+    the axes are process groups (`Mesh.from_env`)."""
+    if mesh_spec is None or isinstance(mesh_spec, Mesh):
         return mesh_spec
-    spec = (parse_mesh_spec(mesh_spec) if isinstance(mesh_spec, str)
-            else dict(mesh_spec))
-    if not spec:
-        return None
-    other = sorted(set(spec) - {"model"})
-    if other:
-        raise NotImplementedError(
-            f"mesh axes {other}: only the `model` axis is ported; the data "
-            "axis (solve_pool, merge_sharded, striped_beam_width, "
-            "global_winner) is still to do (ROADMAP.md §1, the data-axis step)")
-    d = int(spec["model"])
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        axis = ProcessGroupAxis.from_env(device)
-        if axis.size != d:
-            raise ValueError(f"--mesh model={d} under a launcher of "
-                             f"{axis.size} processes")
-        return axis
-    return LocalAxis(d)
+    if isinstance(mesh_spec, (LocalAxis, ProcessGroupAxis)):
+        return Mesh({"model": mesh_spec})
+    if not isinstance(mesh_spec, str):
+        if not mesh_spec:
+            return None
+        # the string parser's checks (names, sizes, order) for a dict too
+        mesh_spec = ",".join(f"{k}={v}" for k, v in dict(mesh_spec).items())
+    return build_mesh(parse_mesh_spec(mesh_spec), device)
 
 
 def solve_distributed(graph, cfg: para_mod.ParaQAOAConfig, mesh_spec,
                       partition=None, schedule: str = "alternating",
+                      split_level: int | None = None, merge_mode: str = "auto",
                       device: str | torch.device = "cuda"):
-    """End-to-end ParaQAOA with a `model` mesh axis (paper Fig. 3).
+    """End-to-end ParaQAOA on a device mesh (paper Fig. 3).
 
-    1. partition on the host at the lifted budget ``cfg.n_qubits + h``;
-    2. subgraphs of ``cfg.n_qubits`` qubits or fewer solve as one padded
-       batch, as in `solve`; the larger ones, grouped by qubit count, run
-       through `sharded_qaoa_batch` at the linear-ramp angles, or after
-       ``cfg.sharded_opt_steps`` Adam steps through the sharded evolution;
-    3. the single-device merge, then ``cfg.refine_steps`` 1-flip steps of
-       refinement and the re-score check of `solve`.
+    1. partition on the host at the lifted budget ``cfg.n_qubits + h``,
+       h = log2 of the `model` axis (0 without one);
+    2. subgraphs of ``cfg.n_qubits`` qubits or fewer solve through
+       `solve_pool` over the `data` (and `pod`) axes, or as the one batch
+       of `solve` without them; the larger ones, grouped by qubit count,
+       run through `sharded_qaoa_batch` over `model` at the linear-ramp
+       angles, or after ``cfg.sharded_opt_steps`` Adam steps through the
+       sharded evolution; in one process they run once, not once a data
+       shard;
+    3. the merge, as ``merge_mode`` says (``distributed.py:577-622``):
+       "auto" stripes the frontier over the innermost data axis only where
+       the striped sweep is provably exhaustive, so the value equals the
+       single-device merge's; "striped" always stripes (the paper's
+       independent workers, a different heuristic once the beam prunes);
+       "single" keeps the merge on one device. The split is at
+       ``split_level`` (default ``cfg.merge_level``); then
+       ``cfg.refine_steps`` 1-flip steps and the re-score check of `solve`.
 
     ``mesh_spec`` as `as_mesh` takes it; None (or an empty mesh) runs the
-    single-device `solve`. Runs on ``device`` (default the GPU; raises
-    when it is missing). Returns the `ParaQAOAOutput` of `solve`.
+    single-device `solve`. Raises ValueError for an unknown ``merge_mode``
+    and for subgraphs above the device cap on a mesh without `model`. Runs
+    on ``device`` (default the GPU; raises when it is missing). Returns
+    the `ParaQAOAOutput` of `solve`.
     """
     dev = resolve_device(device)
-    axis = as_mesh(mesh_spec, dev)
-    if axis is None:
+    if merge_mode not in MERGE_MODES:
+        raise ValueError(f"unknown merge_mode {merge_mode!r}")
+    mesh = as_mesh(mesh_spec, dev)
+    if mesh is None or not mesh.axes:
         return para_mod.solve(graph, cfg, partition=partition, device=dev)
     prob = as_problem(graph)
     graph = prob.graph
     has_lin = prob.has_linear
     lin_host = prob.linear.numpy() if has_lin else None
+    data_axes = mesh.data_axes
+    model = mesh.model
     device_cap = cfg.n_qubits
-    budget = device_cap + axis.h
+    budget = device_cap + (model.h if model else 0)
     steps = cfg.sharded_opt_steps
     tr = trace_mod.get_tracer()
     with tr.span("solve", n=graph.n, n_edges=graph.n_edges,
-                 mesh={"model": axis.size}) as root:
+                 mesh=mesh.shape) as root:
         # ---- stage 1: partition at the lifted budget -------------------
         with tr.span("partition", n_qubits=budget) as sp_part:
             part = partition or partition_for_solver(graph, budget)
             sub_lins = split_linear(part, lin_host) if has_lin else None
 
-        # ---- stage 2: single-device batch + the sharded subproblems ----
+        # ---- stage 2: the solver pool + the sharded subproblems --------
         qcfg = cfg.qaoa_config()
         small = [i for i, s in enumerate(part.sizes) if s <= device_cap]
         big = [i for i, s in enumerate(part.sizes) if s > device_cap]
+        if big and model is None:
+            raise ValueError(
+                f"subgraphs of {max(part.sizes)} qubits exceed the "
+                f"{device_cap}-qubit device cap and the mesh has no `model` axis")
         bit_indices = np.zeros((part.m, cfg.top_k), dtype=np.int64)
         with tr.span("solve_pool", m=part.m, n_small=len(small),
                      n_big=len(big)) as sp_solve:
@@ -209,8 +278,12 @@ def solve_distributed(graph, cfg: para_mod.ParaQAOAConfig, mesh_spec,
                 linears = (qaoa_mod.pad_linear_arrays(
                     [sub_lins[i] for i in small], device_cap, device=dev)
                     if has_lin else None)
-                res = qaoa_mod.solve_subgraph_batch(edges, weights, masks, qcfg,
-                                                    linear=linears)
+                if data_axes:
+                    res = solve_pool(edges, weights, masks, qcfg, mesh,
+                                     axes=data_axes, linears=linears)
+                else:
+                    res = qaoa_mod.solve_subgraph_batch(edges, weights, masks,
+                                                        qcfg, linear=linears)
                 bit_indices[small] = res.bitstrings.cpu().numpy()
             g0, b0 = qaoa_mod.linear_ramp_init(cfg.p_layers, cfg.ramp_delta,
                                                device=dev)
@@ -226,16 +299,39 @@ def solve_distributed(graph, cfg: para_mod.ParaQAOAConfig, mesh_spec,
                         [sub_lins[i] for i in idxs], n_sub, device=dev)
                         if has_lin else None)
                     res = sharded_qaoa_batch(
-                        b_edges, b_weights, n_sub, g0, b0, axis,
+                        b_edges, b_weights, n_sub, g0, b0, model,
                         top_k=cfg.top_k, schedule=schedule,
                         group=qcfg.mixer_group, opt_steps=steps,
                         learning_rate=cfg.learning_rate, linears=b_lins)
                     bit_indices[idxs] = res.bitstrings.cpu().numpy()
 
-        # ---- stage 3: the single-device merge --------------------------
+        # ---- stage 3: the merge, striped where the policy allows -------
         with tr.span("merge", m=part.m) as sp_merge:
-            assignment, cut, bw = para_mod.merge_candidates(
-                part, bit_indices, cfg, linear=lin_host, device=dev)
+            plan, bw = para_mod.merge_inputs(part, bit_indices, cfg,
+                                             linear=lin_host, device=dev)
+            # the merge stripes over the innermost data axis only; a `pod`
+            # axis replicates the striped sweep rather than widening it
+            n_shards = mesh.shape[data_axes[-1]] if data_axes else 1
+            sl = min(cfg.merge_level if split_level is None else split_level,
+                     part.m - 1)
+            per_shard = None
+            if n_shards > 1 and part.m > 1 and merge_mode != "single":
+                w_exact = merge_mod.striped_beam_width(
+                    cfg.top_k, part.m, n_shards, sl, cap=cfg.beam_cap)
+                if w_exact is not None and (cfg.beam_width is None
+                                            or bw >= 2 * cfg.top_k**part.m):
+                    per_shard = w_exact
+                elif merge_mode == "striped":
+                    per_shard = max(-(-bw // n_shards), 2 * cfg.top_k)
+            if per_shard is not None:
+                assign, val = merge_sharded(plan, per_shard, mesh,
+                                            axis=data_axes[-1], split_level=sl)
+                assignment, cut = assign.cpu().numpy(), float(val)
+            else:
+                merged = merge_mod.merge_scan(plan, bw)
+                assignment = merged.assignment.cpu().numpy()
+                cut = float(merged.cut_value)
+            del plan
 
         # ---- optional beyond-paper refinement ----------------------------
         with tr.span("refine", steps=cfg.refine_steps) as sp_refine:
@@ -256,7 +352,9 @@ def solve_distributed(graph, cfg: para_mod.ParaQAOAConfig, mesh_spec,
         cut_value=obj,
         runtime_s=timings["total_s"],
         extra={"m_subgraphs": part.m, "k": cfg.top_k, "beam": bw,
-               "mesh": {"model": axis.size}, "axis": repr(axis),
+               "mesh": mesh.shape, "axis": repr(mesh),
+               "merge_shards": n_shards if per_shard is not None else 1,
+               "merge_mode": merge_mode, "merge_per_shard_beam": per_shard,
                "sharded_subproblems": len(big), "sharded_opt_steps": steps,
                "schedule": schedule, **timings},
     )

@@ -40,6 +40,9 @@ class MergePlan(NamedTuple):
 
 
 class MergeResult(NamedTuple):
+    """One sweep's result; a sweep of several stripes gives each field a
+    leading (S,) axis."""
+
     assignment: torch.Tensor  # (V,) int8 best global assignment
     cut_value: torch.Tensor  # scalar f32
     beam_assign: torch.Tensor  # (W, V_pad) final frontier
@@ -110,27 +113,26 @@ def build_merge_plan(part: Partition, bitstring_indices: np.ndarray, k: int,
 
 def _level_delta(beam_assign, oriented, lo: int, edge_u, edge_v, edge_w,
                  n_max: int, lin):
-    """Score of this level's edge and linear buckets: (W, K) f32.
+    """Score of this level's edge and linear buckets: (S, W, K) f32.
 
-    beam_assign (W, V_pad) int8; oriented (W, K, n_max) int8. The linear
-    term is scored on the oriented bits, which is where the two
+    beam_assign (S, W, V_pad) int8; oriented (S, W, K, n_max) int8. The
+    linear term is scored on the oriented bits, which is where the two
     orientations of a candidate pick up different Σ h_v·x_v.
     """
     v_local = torch.clamp(edge_v - lo, 0, n_max - 1).long()
     u_local = torch.clamp(edge_u - lo, 0, n_max - 1).long()
     u_in_prefix = edge_u < lo
-    s_u_prefix = beam_assign[:, edge_u.long()]  # (W, E)
-    s_u_cand = oriented[:, :, u_local]  # (W, K, E)
-    s_v = oriented[:, :, v_local]
-    s_u = torch.where(u_in_prefix[None, None, :], s_u_prefix[:, None, :],
-                      s_u_cand)
+    s_u_prefix = beam_assign[..., edge_u.long()]  # (S, W, E)
+    s_u_cand = oriented[..., u_local]  # (S, W, K, E)
+    s_v = oriented[..., v_local]
+    s_u = torch.where(u_in_prefix, s_u_prefix[:, :, None, :], s_u_cand)
     crossed = (s_u ^ s_v).to(torch.float32)
     return crossed @ edge_w + oriented.to(torch.float32) @ lin
 
 
 def _seed_frontier(plan: MergePlan, w_width: int, lo_h: np.ndarray):
     """Level-0 frontier: both orientations of subgraph 1's K candidates,
-    scored on the level-0 bucket."""
+    scored on the level-0 bucket; (W, V_pad) and (W,)."""
     k = plan.k
     dev = plan.cand_bits.device
     bits0 = plan.cand_bits[0]
@@ -138,9 +140,9 @@ def _seed_frontier(plan: MergePlan, w_width: int, lo_h: np.ndarray):
     lo0 = int(lo_h[0])
     assign0 = torch.zeros((2 * k, plan.n_pad), dtype=torch.int8, device=dev)
     assign0[:, lo0:lo0 + plan.n_max] = cands0
-    delta0 = _level_delta(assign0, cands0[:, None, :], lo0, plan.edge_u[0],
-                          plan.edge_v[0], plan.edge_w[0], plan.n_max,
-                          plan.lin[0])[:, 0]
+    delta0 = _level_delta(assign0[None], cands0[None, :, None, :], lo0,
+                          plan.edge_u[0], plan.edge_v[0], plan.edge_w[0],
+                          plan.n_max, plan.lin[0])[0, :, 0]
     if 2 * k > w_width:
         top_v, top_i = stable_topk(delta0, w_width)
         return assign0[top_i], top_v
@@ -153,38 +155,91 @@ def _seed_frontier(plan: MergePlan, w_width: int, lo_h: np.ndarray):
 
 
 def _level_step(beam_assign, beam_score, lo: int, bits, eu, ev, ew, lin, *,
-                k: int, n_max: int, w_width: int):
-    """One merge level: orient, score, keep the top ``w_width``, write the
-    window."""
-    shared = beam_assign[:, lo]  # (W,)
-    flip = bits[None, :, 0] ^ shared[:, None]  # (W, K) int8
-    oriented = bits[None, :, :] ^ flip[:, :, None]  # (W, K, n_max) int8
+                k: int, n_max: int, w_width: int, keep=None):
+    """One merge level of S beams (S, W, ·): orient, score, keep the top
+    ``w_width`` of each, write the window. ``keep`` (S, W·K) bool masks
+    the flat (row, candidate) indices a stripe may keep at its split."""
+    shared = beam_assign[:, :, lo]  # (S, W)
+    flip = bits[None, None, :, 0] ^ shared[:, :, None]  # (S, W, K) int8
+    oriented = bits[None, None] ^ flip[..., None]  # (S, W, K, n_max) int8
     delta = _level_delta(beam_assign, oriented, lo, eu, ev, ew, n_max, lin)
-    scores = beam_score[:, None] + delta  # empty rows stay at NEG
-    top_v, top_i = stable_topk(scores.reshape(-1), w_width)
+    flat = (beam_score[:, :, None] + delta).flatten(1)  # empty rows stay at NEG
+    if keep is not None:
+        flat = torch.where(keep, flat, NEG)
+    top_v, top_i = stable_topk(flat, w_width)  # (S, W)
+    s_idx = torch.arange(flat.shape[0], device=flat.device)[:, None]
     w_idx = torch.div(top_i, k, rounding_mode="floor")
     k_idx = top_i % k
-    new_assign = beam_assign[w_idx]
-    picked = oriented[w_idx, k_idx]  # (W, n_max)
-    cur = new_assign[:, lo:lo + n_max]
-    new_assign[:, lo:lo + n_max] = torch.where(top_v[:, None] > NEG / 2,
-                                               picked, cur)
+    new_assign = beam_assign[s_idx, w_idx]
+    picked = oriented[s_idx, w_idx, k_idx]  # (S, W, n_max)
+    cur = new_assign[:, :, lo:lo + n_max]
+    new_assign[:, :, lo:lo + n_max] = torch.where(top_v[..., None] > NEG / 2,
+                                                  picked, cur)
     return new_assign, top_v
 
 
-def merge_scan(plan: MergePlan, beam_width: int) -> MergeResult:
-    """Run the level-synchronous merge. Exact iff beam_width >= 2·K^M."""
+def _stripe_mask(ids: torch.Tensor, width: int, n_shards: int) -> torch.Tensor:
+    """(S, width) bool: flat index j belongs to stripe ids[s] iff
+    j mod n_shards == ids[s] (``merge.py:255-257``, ``:295-297``)."""
+    j = torch.arange(width, device=ids.device)
+    return (j % n_shards)[None, :] == ids[:, None]
+
+
+def merge_scan(plan: MergePlan, beam_width: int, shard_id=None,
+               n_shards: int = 1, split_level: int = 1) -> MergeResult:
+    """Run the level-synchronous merge. Exact iff beam_width >= 2·K^M.
+
+    With ``n_shards`` > 1 the frontier is striped at ``split_level``
+    (paper §3.4.2): stripe s keeps the rows whose flat index is s mod
+    ``n_shards`` there and sweeps them alone, as the paper's 2K^L DFS
+    workers. ``shard_id`` is None (no stripe), an int (that stripe, as the
+    JAX ``merge_scan``), or a 1-D tensor of stripe ids, swept together on
+    a leading axis of the beam; the result's fields then carry that axis.
+    """
     lo_h = plan.lo.cpu().numpy()
-    beam_assign, beam_score = _seed_frontier(plan, beam_width, lo_h)
+    dev = plan.cand_bits.device
+    stripe = shard_id is not None and n_shards > 1
+    ids = torch.as_tensor(0 if shard_id is None else shard_id,
+                          dtype=torch.int64, device=dev)
+    batched = ids.dim() == 1
+    ids = ids.reshape(-1)
+    seed_assign, seed_score = _seed_frontier(plan, beam_width, lo_h)
+    n = ids.shape[0]
+    beam_assign = seed_assign.expand(n, *seed_assign.shape).contiguous()
+    beam_score = seed_score.expand(n, -1).contiguous()
+    if stripe and split_level == 0:
+        beam_score = torch.where(
+            _stripe_mask(ids, beam_score.shape[1], n_shards), beam_score, NEG)
     for l in range(1, lo_h.shape[0]):
+        keep = None
+        if stripe and l == split_level:
+            keep = _stripe_mask(ids, beam_score.shape[1] * plan.k, n_shards)
         beam_assign, beam_score = _level_step(
             beam_assign, beam_score, int(lo_h[l]), plan.cand_bits[l],
             plan.edge_u[l], plan.edge_v[l], plan.edge_w[l], plan.lin[l],
-            k=plan.k, n_max=plan.n_max, w_width=beam_width)
-    best = torch.argmax(beam_score)  # first maximum, as jnp.argmax
-    return MergeResult(assignment=beam_assign[best, : plan.n_vert],
-                       cut_value=beam_score[best], beam_assign=beam_assign,
-                       beam_score=beam_score)
+            k=plan.k, n_max=plan.n_max, w_width=beam_width, keep=keep)
+    rows = torch.arange(n, device=dev)
+    best = torch.argmax(beam_score, dim=1)  # first maximum, as jnp.argmax
+    res = MergeResult(assignment=beam_assign[rows, best, : plan.n_vert],
+                      cut_value=beam_score[rows, best], beam_assign=beam_assign,
+                      beam_score=beam_score)
+    return res if batched else MergeResult(*(x[0] for x in res))
+
+
+def global_winner(res: MergeResult, axis, shard_id: torch.Tensor):
+    """The winner of a striped merge over ``axis`` (``merge.py:451-464``):
+    the best value is the max over shards; among shards that reach it the
+    lowest wins, and its assignment is broadcast. ``res`` carries a
+    leading axis of this process's stripes, ``shard_id`` (local,) their
+    ids. Returns (assignment (V,) int8, value), the same on every process.
+    The rank and the assignment reduce in int64 and int32: NCCL and gloo
+    need not reduce int8 alike."""
+    best = axis.max(res.cut_value)
+    rank = torch.where(res.cut_value >= best, shard_id, 2**30)
+    winner = axis.min(rank)
+    mine = (shard_id == winner).to(torch.int32)
+    assign = axis.sum(res.assignment.to(torch.int32) * mine[:, None])[0]
+    return assign.to(torch.int8), best
 
 
 def exact_beam_width(k: int, m: int, cap: int = 1 << 22) -> int:
@@ -195,3 +250,23 @@ def exact_beam_width(k: int, m: int, cap: int = 1 << 22) -> int:
         if w > cap:
             return cap
     return max(w, 2 * k)
+
+
+def striped_beam_width(k: int, m: int, n_shards: int, split_level: int,
+                       cap: int = 1 << 22) -> int | None:
+    """Per-shard frontier width that keeps a striped merge exhaustive (a
+    copy of ``merge.py:477-500``).
+
+    Before the split every shard carries the full frontier (2·K^j rows
+    survive level j, so the width must reach 2·K^split); after it each
+    stripe grows by K a level, and pruning at the last level is harmless.
+    None when the exhaustive sweep (global 2·K^M, or the per-shard share)
+    exceeds ``cap``: the merge is then heuristic.
+    """
+    total = 2 * k**m
+    if total > cap:
+        return None
+    l = min(split_level, m - 1)
+    roots = -(-2 * k**l // n_shards)
+    w = max(roots * k ** (m - 1 - l), 2 * k**l, 2 * k)
+    return w if w <= cap else None

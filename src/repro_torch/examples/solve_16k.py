@@ -5,15 +5,17 @@ refinement), with stage timings and a local-search reference (port of
 
   PYTHONPATH=src python -m repro_torch.examples.solve_16k --qubits 20
   PYTHONPATH=src python -m repro_torch.examples.solve_16k --n 2000 --device cpu
+  PYTHONPATH=src python -m repro_torch.examples.solve_16k --qubits 20 --mesh data=4
   PYTHONPATH=src python -m repro_torch.examples.solve_16k --mesh model=4
 
 The flags and their defaults are the reference example's, plus
 ``--device``: the edge probability 0.01 (≈ 1.28 M edges at 16,000
 vertices) and the qubit budget 10 are the reference's CPU-scaled values;
 one H100 takes ``--qubits 20`` for the whole batch (843 subgraphs).
-``--mesh model=D`` runs `core.distributed.solve_distributed` with the
-sharded statevector; a ``data`` axis, and ``--merge`` other than ``auto``,
-are not ported yet (ROADMAP.md §1, the data-axis step).
+``--mesh`` runs `core.distributed.solve_distributed`: ``data=D`` splits
+the solver pool over D shards and stripes the merge as ``--merge`` says,
+``model=D`` shards the statevector of the subgraphs above the budget. In
+one process every shard lives on the one device.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="repro_torch.examples.solve_16k",
         description="ParaQAOA headline instance: >10k-vertex Max-Cut, "
-        "optionally through the model-axis mesh runtime.")
+        "optionally through the mesh runtime.")
     ap.add_argument("--n", type=int, default=16_000,
                     help="vertex count (paper headline: 16,000)")
     ap.add_argument("--p", type=float, default=0.01,
@@ -41,13 +43,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--refine", type=int, default=200,
                     help="1-flip local-search steps on the merged cut")
     ap.add_argument("--mesh", type=str, default=None, metavar="SPEC",
-                    help="mesh spec 'model=D': the sharded statevector "
-                    "lifts the qubit budget to N + log2(D); a data axis is "
-                    "not ported yet")
+                    help="device mesh spec, e.g. 'data=4' or 'data=2,model=2' "
+                    "(a model axis lifts the qubit budget by log2(model))")
     ap.add_argument("--merge", choices=("auto", "striped", "single"),
                     default="auto", dest="merge_mode",
-                    help="distributed merge policy of the data axis; only "
-                    "'auto' (the single-device merge here) is ported")
+                    help="distributed merge policy: 'auto' stripes the "
+                    "frontier across data shards only when provably "
+                    "exhaustive; 'striped' always stripes (the paper's "
+                    "independent workers); 'single' keeps it on one device")
     ap.add_argument("--sharded-opt-steps", type=int, default=0,
                     help="Adam steps on oversized (model-sharded) subproblem "
                     "angles, through the sharded evolution; 0 keeps the "
@@ -63,11 +66,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.merge_mode != "auto":
-        raise NotImplementedError(
-            f"--merge {args.merge_mode}: the striped merge of the data axis is "
-            "not ported yet (ROADMAP.md §1, the data-axis step)")
-
     from repro_torch.core import ParaQAOAConfig, solve, solve_distributed
     from repro_torch.core.baselines import local_search
     from repro_torch.core.graph import Graph
@@ -87,9 +85,11 @@ def main(argv=None):
         sharded_opt_steps=args.sharded_opt_steps,
     )
     if args.mesh:
-        out = solve_distributed(graph, cfg, args.mesh, device=args.device)
+        out = solve_distributed(graph, cfg, args.mesh, merge_mode=args.merge_mode,
+                                device=args.device)
         extra = out.report.extra
-        print(f"mesh {extra['mesh']} ({extra['axis']}): "
+        print(f"mesh {extra['mesh']} ({extra['axis']}): {extra['merge_shards']} "
+              f"merge shards ({extra['merge_mode']}), "
               f"{extra['sharded_subproblems']} model-sharded subproblems "
               f"(sharded_opt_steps={extra['sharded_opt_steps']})")
     else:

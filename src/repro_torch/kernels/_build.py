@@ -69,6 +69,8 @@ SIGNATURES = {
     "apply_phase": ("phase", "pq_apply_phase",
                     [P, P, P, P, P, P, I64, I64, I64, P]),
     "expectation": ("phase", "pq_expectation", [P, P, P, P, P, I64, I64, I64, P]),
+    "phase_grad": ("phase", "pq_phase_grad",
+                   [P, P, P, P, P, P, P, I64, I64, I64, P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

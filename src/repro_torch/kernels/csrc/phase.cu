@@ -28,6 +28,16 @@
 // inputs give the same bits on every run. The product and sum per element
 // are rounded as the plain version rounds them (__fmul_rn/__fadd_rn, no
 // FMA contraction).
+//
+// pq_phase_grad is the phase rule's gamma cotangent of the layer backward
+// (and of the standalone phase), which the JAX package leaves to XLA
+// (jnp.sum(cutv * t) at src/repro/kernels/ops.py:263 and :431). It
+// computes out[b] = sum_x c * (im * g_re - re * g_im), f32: five planes
+// read (20 bytes per amplitude), 4 flops. A torch reduction over the row
+// picks its block shape and its split across blocks from the number of
+// rows, so its bits would depend on the batch a row is solved in; this
+// one sums in the expectation's two passes, whose order depends only on
+// the row length and `parts`.
 #include "common.cuh"
 
 namespace {
@@ -82,6 +92,29 @@ expectation_partial_kernel(const float* __restrict__ re,
 }
 
 __global__ void __launch_bounds__(pq::kThreads)
+phase_grad_partial_kernel(const float* __restrict__ re,
+                          const float* __restrict__ im,
+                          const float* __restrict__ g_re,
+                          const float* __restrict__ g_im,
+                          const float* __restrict__ cutv,
+                          float* __restrict__ partial, int64_t dim,
+                          int64_t parts) {
+  __shared__ float s_buf[pq::kThreads];
+  const int64_t b = blockIdx.x / parts;
+  const int64_t p = blockIdx.x % parts;
+  const int64_t chunk = dim / parts;
+  const int64_t begin = b * dim + p * chunk;
+  float acc = 0.f;
+  for (int64_t i = threadIdx.x; i < chunk; i += pq::kThreads) {
+    const int64_t j = begin + i;
+    const float t = __fsub_rn(__fmul_rn(im[j], g_re[j]), __fmul_rn(re[j], g_im[j]));
+    acc = __fadd_rn(acc, __fmul_rn(cutv[j], t));
+  }
+  const float total = block_sum(acc, s_buf);
+  if (threadIdx.x == 0) partial[blockIdx.x] = total;
+}
+
+__global__ void __launch_bounds__(pq::kThreads)
 expectation_final_kernel(const float* __restrict__ partial,
                          float* __restrict__ out, int64_t parts) {
   __shared__ float s_buf[pq::kThreads];
@@ -118,6 +151,27 @@ PQ_EXPORT int pq_expectation(const void* re, const void* im, const void* cutv,
   expectation_partial_kernel<<<static_cast<unsigned>(batch * parts),
                                pq::kThreads, 0, st>>>(
       static_cast<const float*>(re), static_cast<const float*>(im),
+      static_cast<const float*>(cutv), static_cast<float*>(partial), dim,
+      parts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  expectation_final_kernel<<<static_cast<unsigned>(batch), pq::kThreads, 0,
+                             st>>>(static_cast<const float*>(partial),
+                                   static_cast<float*>(out), parts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// re, im, g_re, g_im, cutv (B, dim) f32; partial (B, parts) f32 temporary;
+// out (B,) f32. parts divides dim.
+PQ_EXPORT int pq_phase_grad(const void* re, const void* im, const void* g_re,
+                            const void* g_im, const void* cutv, void* partial,
+                            void* out, int64_t batch, int64_t dim,
+                            int64_t parts, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  phase_grad_partial_kernel<<<static_cast<unsigned>(batch * parts),
+                              pq::kThreads, 0, st>>>(
+      static_cast<const float*>(re), static_cast<const float*>(im),
+      static_cast<const float*>(g_re), static_cast<const float*>(g_im),
       static_cast<const float*>(cutv), static_cast<float*>(partial), dim,
       parts);
   cudaError_t err = cudaGetLastError();

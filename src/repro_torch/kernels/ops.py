@@ -14,7 +14,8 @@ same kernels at negated angles:
   groups at −β in reverse order, then the fused kernel in ``reverse``
   mode at (−γ, −β); ∂β from the generator contraction over all n qubits
   of the layer output (`betagrad.beta_grad`, a kernel of its own: the JAX
-  package leaves it to XLA), ∂γ from the phase rule on the layer input.
+  package leaves it to XLA), ∂γ from the phase rule on the layer input
+  (`phase.phase_grad`, likewise).
 - `apply_mixer_bits` (``_mixer_bits_vjp``, ops.py:302-330): the group at −β;
   ∂β over the group's qubits, as for the layer.
 - `expectation` (``_expectation_vjp``, ops.py:467-486): closed form.
@@ -49,6 +50,7 @@ KERNELS = (
     "apply_phase",
     "cut_batch_dense",
     "beta_grad",
+    "phase_grad",
 )
 
 
@@ -102,9 +104,9 @@ class _Phase(torch.autograd.Function):
         re, im, cutv, gamma = ctx.saved_tensors
         g_re, g_im = phase.apply_phase(d_ore.contiguous(), d_oim.contiguous(),
                                        cutv, -gamma)
-        t = im * g_re - re * g_im
-        d_gamma = torch.sum(cutv * t, dim=-1)
-        d_cutv = gamma[:, None] * t if ctx.needs_input_grad[2] else None
+        d_gamma = phase.phase_grad(re, im, g_re, g_im, cutv)
+        d_cutv = (gamma[:, None] * (im * g_re - re * g_im)
+                  if ctx.needs_input_grad[2] else None)
         return g_re, g_im, d_cutv, d_gamma
 
 
@@ -168,10 +170,11 @@ class _Layer(torch.autograd.Function):
         d_beta = betagrad.beta_grad(d_ore, d_oim, ore, oim, 0, n)
         g_re, g_im = _layer_adjoint_dispatch(n, group, d_ore, d_oim, cutv,
                                              gamma, beta)
-        # ∂γ and ∂cutv from the phase rule on the layer input
-        t = im * g_re - re * g_im
-        d_gamma = torch.sum(cutv * t, dim=-1)
-        d_cutv = gamma[:, None] * t if ctx.needs_input_grad[2] else None
+        # ∂γ and ∂cutv from the phase rule on the layer input; ∂γ through
+        # `phase.phase_grad`, whose bits do not depend on the batch
+        d_gamma = phase.phase_grad(re, im, g_re, g_im, cutv)
+        d_cutv = (gamma[:, None] * (im * g_re - re * g_im)
+                  if ctx.needs_input_grad[2] else None)
         return g_re, g_im, d_cutv, d_gamma, d_beta, None, None
 
 

@@ -4,8 +4,11 @@ The counterpart of ``repro/kernels/phase.py``, batched over (B, 2^n)
 planes. `apply_phase` is e^{-iγc}ψ with one γ per row (the Pallas
 ``_phase_kernel``); `expectation` is Σ_x |ψ_x|²·c_x per row, (B,) (the
 Pallas ``_exp_kernel``), a deterministic two-pass reduction with no
-atomics. Both kernels are ``csrc/phase.cu``; their plain versions are
-`ref.apply_phase` and `ref.expectation`.
+atomics. `phase_grad` is the phase rule's ∂γ, Σ_x c_x·(im_x·ḡre_x −
+re_x·ḡim_x) per row, in the same two passes, so its bits do not depend on
+the rows it is batched with (the JAX package leaves it to XLA). The
+kernels are ``csrc/phase.cu``; their plain versions are `ref.apply_phase`,
+`ref.expectation` and `ref.phase_grad`.
 
 Launch geometry resolves through `tuning.param`; with tuning off (the
 default) it is the built-in one below.
@@ -83,4 +86,28 @@ def expectation(re: torch.Tensor, im: torch.Tensor,
         out.data_ptr(), b, dim, parts, _build.stream(dev))
     _build.check(rc, "expectation")
     _build.count_launch("expectation")
+    return out
+
+
+def phase_grad(re: torch.Tensor, im: torch.Tensor, g_re: torch.Tensor,
+               g_im: torch.Tensor, cutv: torch.Tensor) -> torch.Tensor:
+    """∂γ of the phase rule: Σ_x c_x·(im_x·g_re,x − re_x·g_im,x) per row,
+    (B,) f32, on (B, 2^n) planes; the expectation's geometry."""
+    if not _build.on_cuda(re):
+        return ref.phase_grad(re, im, g_re, g_im, cutv)
+    b, dim = re.shape
+    dev = re.device
+    tile = _tile("expectation", dim, default_expectation_tile(dim), dev)
+    for t, name in ((re, "re"), (im, "im"), (g_re, "g_re"), (g_im, "g_im"),
+                    (cutv, "cutv")):
+        _build.require(t, name, torch.float32, (b, dim), dev)
+    parts = dim // tile
+    partial = torch.empty((b, parts), dtype=torch.float32, device=dev)
+    out = torch.empty((b,), dtype=torch.float32, device=dev)
+    rc = _build.entry("phase_grad")(
+        re.data_ptr(), im.data_ptr(), g_re.data_ptr(), g_im.data_ptr(),
+        cutv.data_ptr(), partial.data_ptr(), out.data_ptr(), b, dim, parts,
+        _build.stream(dev))
+    _build.check(rc, "phase_grad")
+    _build.count_launch("phase_grad")
     return out

@@ -187,6 +187,12 @@ def mixer_group(re3, im3, beta, k: int):
     C, D = rx_kron_parts(beta, k)
 
     def mm(u, x):
+        if u.shape[0] == 1:
+            # a batch of one takes another BLAS route (a matrix-vector
+            # product where X = Y = 1) than the same row among others: run
+            # it as two rows, so a row's bits do not depend on its batch
+            return torch.einsum("bac,bxcy->bxay", torch.cat([u, u]),
+                                torch.cat([x, x]))[:1]
         return torch.einsum("bac,bxcy->bxay", u, x)
 
     return mm(C, re3) - mm(D, im3), mm(C, im3) + mm(D, re3)
@@ -210,6 +216,12 @@ def apply_mixer(re, im, n: int, beta, group: int = 7):
 def expectation(re, im, cutv):
     """<psi| diag(c) |psi> per row: (B,)."""
     return torch.sum((re * re + im * im) * cutv, dim=-1)
+
+
+def phase_grad(re, im, g_re, g_im, cutv):
+    """The phase rule's gamma cotangent, sum_x c (im g_re - re g_im) per
+    row: (B,)."""
+    return torch.sum(cutv * (im * g_re - re * g_im), dim=-1)
 
 
 def cut_batch_dense(spins: torch.Tensor, adjacency: torch.Tensor, total_weight):

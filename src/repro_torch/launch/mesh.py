@@ -1,11 +1,12 @@
-"""The ``--mesh`` CLI spec (copy of ``repro/launch/mesh.py:26-75``).
+"""The ``--mesh`` CLI spec and the mesh it builds (the port of
+``repro/launch/mesh.py``; the parser is a copy of its lines 26-75).
 
-A spec is a comma-separated ``axis=size`` list, e.g. ``model=4`` or
+A spec is a comma-separated ``axis=size`` list, e.g. ``data=4`` or
 ``data=2,model=4``. Axis names are restricted to the runtime's three roles
 (`pod`/`data`/`model`) and normalized to that order; `model` must be a
 power of two (the sharded statevector's qubit swap rotates log2(model)
-qubits). Pure string processing. Which axes the port can run is decided
-by `core.distributed.as_mesh`.
+qubits). Parsing is pure string processing; `build_mesh` turns a parsed
+spec into a `core.axis.Mesh`.
 """
 
 from __future__ import annotations
@@ -57,3 +58,17 @@ def mesh_spec_size(spec: dict) -> int:
     for s in spec.values():
         total *= s
     return total
+
+
+def build_mesh(spec: dict, device="cuda"):
+    """The `core.axis.Mesh` of a parsed spec: every axis a `LocalAxis` in
+    one process, or process groups under a launcher that sets
+    ``WORLD_SIZE`` > 1 (which must equal the product of the sizes)."""
+    import os
+
+    from repro_torch.core.axis import Mesh
+
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return Mesh.from_env(spec, device)
+    return Mesh.local(spec)
+

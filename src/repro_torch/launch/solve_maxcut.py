@@ -4,17 +4,21 @@
       --qubits 24 --device cuda
   PYTHONPATH=src python -m repro_torch.launch.solve_maxcut --n 400 --p 0.1 \
       --qubits 24 --mesh model=4
+  PYTHONPATH=src python -m repro_torch.launch.solve_maxcut --n 300 --p 0.1 \
+      --qubits 24 --mesh data=4 --merge striped
 
   PYTHONPATH=src python -m repro_torch.launch.solve_maxcut --n 16 --qubits 8 \
       --refine 20 --check-oracle --compare-gw --trace-out trace.jsonl
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels (small
-``--qubits`` only). ``--mesh model=D`` lifts the qubit budget to
-N + log2(D) through the sharded statevector: in one process all D shards
-live on one device (`core.axis.LocalAxis`); under a launcher that sets
-``WORLD_SIZE`` = D (and ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) each
-process holds one shard (`core.axis.ProcessGroupAxis`). A `data` axis is
-not ported yet (ROADMAP.md §1, the data-axis step).
+``--qubits`` only). ``--mesh`` names the axes `pod`, `data` and `model`:
+``model=D`` lifts the qubit budget to N + log2(D) through the sharded
+statevector; ``data=D`` (and ``pod``) splits the solver pool's rows over
+D shards and, as ``--merge`` says, stripes the merge frontier over them.
+In one process every shard lives on one device (`core.axis.LocalAxis`);
+under a launcher that sets ``WORLD_SIZE`` to the product of the sizes
+(and ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) each process holds one
+shard of every axis (`core.axis.Mesh.from_env`).
 """
 
 from __future__ import annotations
@@ -63,10 +67,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     ap.add_argument("--mesh", type=str, default=None, metavar="SPEC",
-                    help="mesh spec 'model=D' (D a power of two): shard "
-                    "each subgraph above the qubit budget over D shards, "
-                    "lifting the budget to N + log2(D). Omit for the "
-                    "single-device pipeline")
+                    help="device mesh spec, e.g. 'data=2' or 'data=2,model=4' "
+                    "(axes: pod/data/model; model must be a power of two and "
+                    "lifts the qubit budget to N + log2(model)). Omit for the "
+                    "single-device pipeline. In one process every shard "
+                    "lives on the one device")
     ap.add_argument("--schedule", choices=("faithful", "alternating"),
                     default="alternating",
                     help="swap schedule for sharded subproblems: 2 vs 1 "
@@ -74,6 +79,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sharded-opt-steps", type=int, default=0,
                     help="Adam steps on sharded subproblem angles, through "
                     "the sharded evolution; 0 keeps the linear ramp")
+    ap.add_argument("--merge", choices=("auto", "striped", "single"),
+                    default="auto", dest="merge_mode",
+                    help="distributed merge policy: 'auto' stripes the "
+                    "frontier across data shards only when provably "
+                    "exhaustive (cut identical to the single-device run); "
+                    "'striped' always stripes (the paper's independent "
+                    "workers; may differ in the beam-pruned regime); "
+                    "'single' keeps the merge on one device")
     ap.add_argument("--compare-gw", action="store_true",
                     help="also run the Goemans-Williamson baseline and "
                     "report AR / PEI against it")
@@ -138,9 +151,13 @@ def run(argv=None):
     with scope:
         if args.mesh:
             out = solve_distributed(instance, cfg, args.mesh,
-                                    schedule=args.schedule, device=args.device)
+                                    schedule=args.schedule,
+                                    merge_mode=args.merge_mode,
+                                    device=args.device)
             extra = out.report.extra
             print(f"[maxcut] mesh {extra['mesh']} ({extra['axis']}): "
+                  f"{extra['merge_shards']} merge shards "
+                  f"({extra['merge_mode']}), "
                   f"{extra['sharded_subproblems']} model-sharded subproblems "
                   f"({extra['schedule']}, sharded_opt_steps="
                   f"{extra['sharded_opt_steps']})")

@@ -184,6 +184,22 @@ def test_expectation_kernel_matches_plain_and_repeats_bitwise(cuda_device, n):
     assert torch.equal(got, phase.expectation(re, im, cutv))
 
 
+@pytest.mark.parametrize("n", [4, 10, 15])
+def test_phase_grad_kernel_matches_plain_and_ignores_the_batch(cuda_device, n):
+    """Within 1e-5 of the plain version, the same bits on a second launch,
+    and each row's bits the same alone as in a batch of 17 rows (a torch
+    reduction picks its order from the row count)."""
+    re, im, cutv, _, _ = _inputs(n, 17, 40 + n, cuda_device)
+    g_re, g_im, _, _, _ = _inputs(n, 17, 60 + n, cuda_device)
+    got = phase.phase_grad(re, im, g_re, g_im, cutv)
+    want = ref.phase_grad(re, im, g_re, g_im, cutv)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, phase.phase_grad(re, im, g_re, g_im, cutv))
+    for rows in (slice(0, 1), slice(3, 7), slice(0, 16)):
+        part = phase.phase_grad(re[rows], im[rows], g_re[rows], g_im[rows], cutv[rows])
+        assert torch.equal(part, got[rows])
+
+
 def test_layer_counts_one_launch_per_kernel_call(cuda_device):
     n = 16  # groups at 0 (fused), 7 and 14 (strided)
     re, im, cutv, g, b = _inputs(n, 2, 0, cuda_device)
@@ -194,7 +210,7 @@ def test_layer_counts_one_launch_per_kernel_call(cuda_device):
     assert ops.launch_counts() == {
         "cutvals": 0, "cutvals_at": 0, "fused_phase_mixer_group": 1,
         "mixer_group_strided": 4, "mixer_group_trailing": 1, "expectation": 1,
-        "apply_phase": 0, "cut_batch_dense": 0, "beta_grad": 0}
+        "apply_phase": 0, "cut_batch_dense": 0, "beta_grad": 0, "phase_grad": 0}
 
 
 @pytest.mark.parametrize("schedule", ["faithful", "alternating"])

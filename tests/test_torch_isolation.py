@@ -72,6 +72,28 @@ def test_solve_defaults_to_cuda_and_raises_without_it(monkeypatch):
         solve(g, ParaQAOAConfig(n_qubits=8))
 
 
+@pytest.mark.parametrize("entry", ["dist_checks", "solve_distributed", "cli", "example"])
+def test_data_axis_entry_points_default_to_cuda(monkeypatch, entry):
+    """The self-checks, the solve on a data mesh, and the CLI and example
+    with ``--mesh data=2 --merge striped`` raise where CUDA is missing."""
+    from repro_torch.core import ParaQAOAConfig, _dist_checks, solve_distributed
+    from repro_torch.core.graph import Graph
+    from repro_torch.examples import solve_16k
+    from repro_torch.launch import solve_maxcut
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--n", "20", "--qubits", "6", "--mesh", "data=2", "--merge", "striped"]
+    run = {
+        "dist_checks": lambda: _dist_checks.main(["solve_pool"]),
+        "solve_distributed": lambda: solve_distributed(
+            Graph.erdos_renyi(12, 0.3, seed=0), ParaQAOAConfig(n_qubits=6), "data=2"),
+        "cli": lambda: solve_maxcut.run(argv),
+        "example": lambda: solve_16k.main(argv),
+    }[entry]
+    with pytest.raises(RuntimeError, match="is_available"):
+        run()
+
+
 def test_chip_smoke_fails_without_gpu_and_without_package(tmp_path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     env.pop("PYTHONPATH", None)

@@ -280,7 +280,16 @@ def test_quickstart_example_within_band_of_jax():
 @pytest.mark.parametrize("argv", [["--mesh", "data=2"], ["--mesh", "data=2,model=2"],
                                   ["--merge", "striped"]])
 def test_solve_16k_data_axis_raises(argv):
+    """The example's data-axis argv run, and give the cut and assignment of
+    the same run without the batch axis (the single-device solve, or the
+    model-only mesh); the merge stripes over the 2 data shards."""
     from repro_torch.examples import solve_16k
 
-    with pytest.raises(NotImplementedError, match="data-axis step"):
-        solve_16k.main(["--n", "40", "--qubits", "6", "--device", "cpu", *argv])
+    base = ["--n", "40", "--qubits", "6", "--device", "cpu"]
+    out, _ = solve_16k.main([*base, *argv])
+    plain = (["--mesh", "model=2"] if "data=2,model=2" in argv else [])
+    want, _ = solve_16k.main([*base, *plain])
+    assert out.cut_value == want.cut_value
+    np.testing.assert_array_equal(out.assignment, want.assignment)
+    if "--mesh" in argv:
+        assert out.report.extra["merge_shards"] == 2

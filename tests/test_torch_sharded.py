@@ -442,6 +442,17 @@ def test_process_group_axis_over_gloo_matches_local_axis(tmp_path):
         assert str(got["axis"]) == f"ProcessGroupAxis(size=2, rank={r})"
 
 
+def test_cli_with_data_mesh_and_striped_merge_runs_on_cpu(capsys):
+    from repro_torch.launch import solve_maxcut
+
+    argv = ["--n", "40", "--qubits", "7", "--opt-steps", "1", "--device", "cpu"]
+    out = solve_maxcut.run([*argv, "--mesh", "data=2", "--merge", "striped"])
+    text = capsys.readouterr().out
+    assert "2 merge shards (striped)" in text and "LocalAxis(2)" in text
+    assert out.report.extra["merge_shards"] == 2
+    assert out.cut_value == solve_maxcut.run(argv).cut_value  # exhaustive at K^M
+
+
 def test_cli_with_model_mesh_runs_on_cpu(capsys):
     from repro_torch.launch import solve_maxcut
 
@@ -471,9 +482,22 @@ def test_parse_mesh_spec_matches_jax(spec):
 
 @pytest.mark.parametrize("spec", ["data=2", "data=2,model=4", {"pod": 1, "model": 2}])
 def test_data_axis_raises_not_implemented(spec):
+    """The mesh specs with a batch axis run: each gives the cut, assignment
+    and candidates of the same solve without its batch axes (the
+    single-device solve, or the model-only mesh), and `merge_shards` is
+    the data axis's size where the exhaustive merge stripes."""
     g = Graph.erdos_renyi(12, 0.3, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdist.solve_distributed(g, tpara.ParaQAOAConfig(n_qubits=6), spec, device="cpu")
+    cfg = tpara.ParaQAOAConfig(n_qubits=6, opt_steps=2)
+    got = tdist.solve_distributed(g, cfg, spec, device="cpu")
+    model = tmesh.parse_mesh_spec(spec) if isinstance(spec, str) else spec
+    model = model.get("model")
+    want = (tdist.solve_distributed(g, cfg, {"model": model}, device="cpu") if model
+            else tpara.solve(g, cfg, device="cpu"))
+    assert got.cut_value == want.cut_value
+    np.testing.assert_array_equal(got.assignment, want.assignment)
+    np.testing.assert_array_equal(got.candidates, want.candidates)
+    data = 2 if "data" in str(spec) else 1
+    assert got.report.extra["merge_shards"] == (data if got.partition.m > 1 else 1)
 
 
 def test_solve_distributed_defaults_to_cuda_and_raises_without_it(monkeypatch):

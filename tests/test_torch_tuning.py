@@ -143,13 +143,14 @@ def _planes(b, *shape):
 
 
 def _launch_all(n=12, k=7, b=2):
-    """One launch of each of the nine wrappers at small shapes; returns
+    """One launch of each of the ten wrappers at small shapes; returns
     {op key: per-row dim} as each wrapper keys its lookup."""
     dim, dk = 2**n, 2**k
     re, im, cutv = _planes(b, dim)
     ang = torch.zeros(b)
     phase.apply_phase(re, im, cutv, ang)
     phase.expectation(re, im, cutv)
+    phase.phase_grad(re, im, re, im, cutv)
     v3 = (b, dim // dk, dk)
     fused_layer.fused_phase_mixer_group(re.view(v3), im.view(v3), cutv.view(v3),
                                         ang, ang, k)
@@ -204,7 +205,7 @@ def test_wrappers_launch_builtin_geometry_with_tuning_off(recorder):
     assert ops.launch_counts() == {
         "cutvals": 1, "cutvals_at": 1, "fused_phase_mixer_group": 1,
         "mixer_group_strided": 1, "mixer_group_trailing": 1, "expectation": 1,
-        "apply_phase": 1, "cut_batch_dense": 1, "beta_grad": 1}
+        "apply_phase": 1, "cut_batch_dense": 1, "beta_grad": 1, "phase_grad": 1}
 
 
 @pytest.mark.parametrize("n,lo,nbits,want", [
