@@ -60,8 +60,21 @@ runs these phases, each printing one line, failing on the first fault:
     phase 7's partition against phases 7 and 8;
 20. the headline again through the example with ``--mesh data=4``
     (candidates and cut equal to phase 15's), and with ``--merge striped``;
+21. the solve service (``repro_torch.service``) on the card: (a) the
+    planner's prior, warm solves of G(1000, 0.02) and G(2000, 0.02)
+    written to build/service/calibration.json with the card's name and
+    power limit; (b) 48 requests of the 400-vertex class from 2 tenants at
+    N = 12, 128 slots a dispatch: kernels #1-#4, ∂β and ∂γ at those shapes
+    against their plain versions, one terminal state a request, launches
+    as predicted, every uncached cut and assignment equal to a solo
+    `solve()`, cached replays equal to their entries, throughput, latency,
+    stage spans and the card's idle share; (c) a dispatch returns before
+    its batch has run, with no stream sync; (d) the same requests over
+    mesh ``data=4`` equal to (b); (e) two streamed requests; (f) a
+    wall-clock soak with deadlines at half (b)'s throughput;
 
-then one JSON line of per-kernel numbers, the nvidia-smi line, and
+then one JSON line of per-kernel numbers (``launches`` from phase 4's
+solve, ``service_launches`` from 21b's drain), the nvidia-smi line, and
 ``{"ok": true, ...}`` as the last line. It exits non-zero, printing no
 result, where CUDA is missing or the package is not beside it.
 """
@@ -86,6 +99,14 @@ D_MESH, M_SHARDED = 4, 16  # the sharded path: mesh model=4, 16 subgraphs
 # the data axis: G(300, 0.1) at N = 24 gives 14 subgraphs, so the exhaustive
 # merge (2·2^14 rows) fits the beam cap and data=4 stripes it
 V_DATA, P_DATA, M_DATA = 300, 0.1, 14
+# the solve service (phase 21): the paper's 400-vertex class, a quarter of the
+# requests relabelled repeats, from 2 tenants, no deadline (so the planner
+# takes the widest tuple of the reference's grid: N = 12, its limit), 128
+# slots a dispatch
+SVC_LOAD, SVC_RANGE, SVC_P, SVC_REPEAT, SVC_TENANTS = 48, (100, 400), 0.1, 0.25, 2
+SVC_SLOTS, SVC_QUBITS, SVC_KNOBS = 128, 12, (12, 4, 30, 512)  # knobs (N, K, T, W)
+CAL_SIZES, CAL_P = (1000, 2000), 0.02  # 21a: benchmarks/large_scale.py --distributed
+SOAK_LOAD = 60  # 21f: arrivals of the wall-clock soak
 CPU_BAND = 0.02  # of Σ|w|: the default-steps band of tests/test_torch_core.py
 TIE_RTOL = 1e-6  # marginals this close count as a tie the last ulp may break
 
@@ -882,21 +903,21 @@ def refine_phase(torch, graph, merged) -> None:
           f"equal to the CPU's, card {rep.runtime_s:.3f} s")
 
 
-def n20_kernel_checks(torch, dev, part) -> str:
-    """Kernels #1-#4 and ∂β at the headline's n = 20 on its first rows,
-    against their plain versions: `cutvals` bitwise (unit weights); the
-    fused group [0, 7), the strided groups [7, 14) and [14, 20) (k = 6) and
-    the expectation on seeded unit-norm states; ∂β over all 20 qubits."""
-    from repro_torch.core import qaoa as qaoa_mod
+def state_kernel_checks(torch, dev, edges, weights, n: int, seed: int) -> str:
+    """Kernels #1-#4, ∂β and ∂γ at n qubits on the rows of ``edges`` /
+    ``weights`` (unit weights), against their plain versions: `cutvals`
+    bitwise; the fused group [0, 7) in both directions, the strided
+    groups above it and the expectation on seeded unit-norm states; ∂β
+    over all n qubits within its tolerance and repeatable; ∂γ within 1e-5
+    of Σ|c·t| a row and repeatable."""
     from repro_torch.kernels import betagrad, fused_layer, mixer, ops, phase, ref
 
-    n, b = N_16K, ROWS_16K
-    edges, weights, _ = qaoa_mod.pad_subgraph_arrays(part.subgraphs[:b], n, device=dev)
+    b = edges.shape[0]
     cut = ops.cutvals(n, edges, weights)
     want = ref.cutvals(n, edges, weights)
     torch.cuda.synchronize()
-    check(torch.equal(cut, want), "cutvals at n = 20 differs from its plain version")
-    rng = np.random.default_rng(20)
+    check(torch.equal(cut, want), f"cutvals at n = {n} differs from its plain version")
+    rng = np.random.default_rng(seed)
 
     def t(a):
         return torch.as_tensor(a.astype(np.float32), device=dev)
@@ -912,32 +933,41 @@ def n20_kernel_checks(torch, dev, part) -> str:
         got = fused_layer.fused_phase_mixer_group(*args, reverse=reverse)
         ref_ = fused_layer.fused_phase_mixer_group_plain(*args, reverse)
         errs.append(max(float((x - y).abs().max()) for x, y in zip(got, ref_)))
-    for lo in range(GROUP, n, GROUP):  # the layer's groups: [7, 14), [14, 20)
+    groups = []
+    for lo in range(GROUP, n, GROUP):  # the layer's groups above the first
         k = min(GROUP, n - lo)
         shape = (b, 2 ** (n - lo - k), 2**k, 2**lo)
         got = mixer.mixer_group_strided(re.view(shape), im.view(shape), beta, k)
         ref_ = ref.mixer_group(re.view(shape), im.view(shape), beta, k)
         errs.append(max(float((x - y).abs().max()) for x, y in zip(got, ref_)))
+        groups.append(f"[{lo}, {lo + k})")
     torch.cuda.synchronize()
-    check(max(errs) <= 1e-5, f"state kernels at n = 20: max_abs_err {errs} > 1e-5")
+    check(max(errs) <= 1e-5, f"state kernels at n = {n}: max_abs_err {errs} > 1e-5")
     exp = phase.expectation(re, im, cut)
     exp_want = ref.expectation(re, im, cut)
     # of the largest |<cut>|: a row of a sparse subgraph may have no edge
     rel = float((exp - exp_want).abs().max() / exp_want.abs().max().clamp_min(1e-30))
-    check(rel <= 1e-5, f"expectation at n = 20: max rel err {rel} > 1e-5")
+    check(rel <= 1e-5, f"expectation at n = {n}: max rel err {rel} > 1e-5")
     d_re, d_im = t(rng.standard_normal((b, 2**n))), t(rng.standard_normal((b, 2**n)))
     bargs = (d_re, d_im, re, im, 0, n)
     got = betagrad.beta_grad(*bargs)
     tol = betagrad.tolerance(*bargs)
     err = (got - ref.beta_grad(*bargs)).abs()
-    check(bool((err <= tol).all()), f"beta_grad at n = 20: {err.tolist()} > {tol.tolist()}")
-    check(torch.equal(got, betagrad.beta_grad(*bargs)), "beta_grad at n = 20 not repeatable")
-    del re, im, d_re, d_im, cut, want, got, ref_, bargs
+    check(bool((err <= tol).all()), f"beta_grad at n = {n}: {err.tolist()} > {tol.tolist()}")
+    check(torch.equal(got, betagrad.beta_grad(*bargs)), f"beta_grad at n = {n} not repeatable")
+    pg = phase.phase_grad(re, im, d_re, d_im, cut)
+    scale = torch.sum((cut * (im * d_re - re * d_im)).abs(), dim=-1).clamp_min(1e-30)
+    pg_rel = float(((pg - ref.phase_grad(re, im, d_re, d_im, cut)).abs() / scale).max())
+    check(pg_rel <= 1e-5, f"phase_grad at n = {n}: max err {pg_rel} of sum|c t| > 1e-5")
+    check(torch.equal(pg, phase.phase_grad(re, im, d_re, d_im, cut)),
+          f"phase_grad at n = {n} not repeatable")
+    del re, im, d_re, d_im, cut, want, got, ref_, bargs, pg
     torch.cuda.empty_cache()
-    return (f"n=20 on {b} rows: cutvals bitwise, fused (both directions) and strided "
-            f"[7, 14), [14, 20) (k=6) within {max(errs):.3g} (tol 1e-5), expectation "
+    return (f"n={n} on {b} rows: cutvals bitwise, fused (both directions) and strided "
+            f"{', '.join(groups)} within {max(errs):.3g} (tol 1e-5), expectation "
             f"{rel:.3g} rel, beta_grad in passes {ref.beta_grad_groups(0, n)} within "
-            f"{float(err.max()):.3g} (tol {float(tol.min()):.3g}), repeatable")
+            f"{float(err.max()):.3g} (tol {float(tol.min()):.3g}), phase_grad "
+            f"{pg_rel:.3g} of sum|c t|, both repeatable")
 
 
 def headline_phase(torch, dev, peak_key) -> dict:
@@ -945,6 +975,7 @@ def headline_phase(torch, dev, peak_key) -> dict:
     point at N = 20: the whole batch of 843 subgraphs in one program.
     Returns its cut, candidates, stage times, peak and predicted launches."""
     from repro_torch.core import ParaQAOAConfig
+    from repro_torch.core import qaoa as qaoa_mod
     from repro_torch.core.baselines import goemans_williamson
     from repro_torch.core.graph import Graph
     from repro_torch.core.partition import partition_for_solver
@@ -957,7 +988,10 @@ def headline_phase(torch, dev, peak_key) -> dict:
     part = partition_for_solver(graph, N_16K)
     check(part.m == B_16K and set(part.sizes) <= {N_16K - 1, N_16K},
           f"headline partition M={part.m}, sizes {sorted(set(part.sizes))}")
-    kernels_line = n20_kernel_checks(torch, dev, part)
+    edges, weights, _ = qaoa_mod.pad_subgraph_arrays(part.subgraphs[:ROWS_16K], N_16K,
+                                                     device=dev)
+    kernels_line = state_kernel_checks(torch, dev, edges, weights, N_16K, seed=20)
+    del edges, weights
     print(f"[15 headline kernels] {kernels_line}")
     del part
 
@@ -1304,6 +1338,437 @@ def headline_data_phase(torch, phase15) -> None:
           f"{phase15['peak_gb']:.2f} GB")
 
 
+class EventBackend:
+    """A service backend that records a CUDA event before and after each
+    dispatch's launches, on the dispatch's stream: nothing waits on them."""
+
+    def __init__(self, torch, inner):
+        self.torch, self.inner, self.events = torch, inner, []
+
+    def solve_batch(self, *args, **kw):
+        start = self.torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = self.inner.solve_batch(*args, **kw)
+        end = self.torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.events.append((start, end))
+        return res
+
+    def describe(self):
+        return self.inner.describe()
+
+    def device_s(self) -> float:
+        """The dispatches' device time: first launch to last, summed."""
+        return sum(s.elapsed_time(e) for s, e in self.events) / 1e3
+
+
+def calibration_phase(torch, root: str, smi: str) -> str:
+    """Phase 21a: the planner's prior from this card. Warm `solve()`s of
+    G(1000, 0.02) and G(2000, 0.02) at the knobs of ``benchmarks/
+    large_scale.py --distributed`` (N = 10, K = 1, T = 12, W = 64, p = 2)
+    give the ``single`` rows `CostModel.fit` reads. Written with the card's
+    name and power limit to build/service/calibration.json, whose copy
+    beside ``service/planner.py`` is `Planner()`'s default prior."""
+    from repro_torch.core import ParaQAOAConfig, solve
+    from repro_torch.core.graph import Graph
+    from repro_torch.service.planner import CostModel
+
+    knobs = dict(n_qubits=10, top_k=1, p_layers=2, opt_steps=12, beam_width=64)
+    cfg = ParaQAOAConfig(**knobs)
+    rows = []
+    for n in CAL_SIZES:
+        g = Graph.erdos_renyi(n, CAL_P, seed=0)
+        solve(g, cfg, device="cuda")  # warm: the first solve of a shape
+        out = solve(g, cfg, device="cuda")
+        rows.append({"name": f"calibration/single_n{n}/p{CAL_P}", "mode": "single",
+                     "n": n, "edges": g.n_edges, "m": out.partition.m,
+                     "cut": out.cut_value, "runtime_s": out.report.runtime_s,
+                     **out.timings})
+    payload = {"suite": "service_calibration",
+               "source": "chip_smoke.py phase 21a: warm solve() on the card",
+               "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+               "torch": torch.__version__, "cuda": torch.version.cuda,
+               "knobs": knobs, "rows": rows}
+    path = os.path.join(root, "build", "service", "calibration.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=1)
+    model = CostModel.from_bench_file(path)
+    check(model.c_partition != CostModel().c_partition, f"{path} gave no fit: {model}")
+    print(f"[21a calibration] {smi} | " + " | ".join(
+        f"G({r['n']}, {CAL_P}): M={r['m']} cut {r['cut']:.0f}, partition "
+        f"{r['partition_s']:.4f} s, solve {r['solve_s']:.4f} s, merge {r['merge_s']:.4f} s"
+        for r in rows) + f" | fit: c_partition {model.c_partition:.4g}, c_solve "
+        f"{model.c_solve:.4g}, c_merge {model.c_merge:.4g} (c_dispatch "
+        f"{model.c_dispatch:.4g}, c_merge_base {model.c_merge_base:.4g} kept) | {path}")
+    return path
+
+
+def service_mix():
+    """Phase 21's requests and their tenants, from seed 0."""
+    from repro_torch.service.workload import request_mix, tenant_mix
+
+    return (request_mix(SVC_LOAD, SVC_RANGE, SVC_P, SVC_REPEAT, seed=0),
+            tenant_mix(SVC_LOAD, SVC_TENANTS, seed=0))
+
+
+def run_service(torch, graphs, tenants, **kw):
+    """Submit every request, drain, and wait for the card; returns (service,
+    request ids, wall seconds). ``kw`` goes to `ServiceConfig`, except
+    ``tracer`` and ``backend``, which go to `SolveService`."""
+    from repro_torch.service import ServiceConfig, SolveService
+
+    extra = {k: kw.pop(k) for k in ("tracer", "backend") if k in kw}
+    cfg = dict(batch_slots=SVC_SLOTS, max_qubits=SVC_QUBITS, max_inflight=2,
+               recalibrate=False, device="cuda")
+    cfg.update(kw)
+    svc = SolveService(ServiceConfig(**cfg), **extra)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [svc.submit(g, tenant=t) for g, t in zip(graphs, tenants)]
+    svc.drain()
+    torch.cuda.synchronize()
+    return svc, rids, time.perf_counter() - t0
+
+
+def service_phase(torch, dev, ops) -> dict:
+    """Phase 21b: the service at full width. Kernels #1-#4, ∂β and ∂γ
+    against their plain versions on the first 128 subgraphs as the
+    scheduler packs them (N = 12, edges padded to 66); the fold of the pad
+    qubits alone and in the batch; then 48 requests through `SolveService`
+    with their launches counted from 0: one terminal state each, launches
+    = the bucket's prediction x dispatches, every request not served from
+    the cache equal to a solo `solve()` bit for bit, every cached replay
+    equal to the entry it replays."""
+    from repro_torch.core import qaoa as qaoa_mod
+    from repro_torch.core import solve
+    from repro_torch.core.graph import as_problem, problem_value
+    from repro_torch.core.partition import partition_for_solver
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.service import KnobTuple, edge_capacity, make_backend
+    from repro_torch.service.canonical import canonical_key
+    from repro_torch.service.workload import request_mix
+
+    graphs, tenants = service_mix()
+    subs = [s for g in graphs for s in partition_for_solver(g, SVC_QUBITS).subgraphs]
+    subs = subs[:SVC_SLOTS]
+    edges, weights, _ = qaoa_mod.pad_subgraph_arrays(
+        subs, SVC_QUBITS, e_pad=edge_capacity(SVC_QUBITS), n_rows=SVC_SLOTS, device=dev)
+    line = state_kernel_checks(torch, dev, edges, weights, SVC_QUBITS, seed=21)
+    # the pad fold: a group's rows alone and among the batch's, bitwise; and
+    # whether the plain torch.sum over the pad axis would have moved
+    probs = torch.as_tensor(np.random.default_rng(22).random(
+        (SVC_SLOTS, 2**SVC_QUBITS), dtype=np.float32), device=dev)
+    rows, n_real = SVC_SLOTS // 3 + 1, SVC_QUBITS - 4  # 16 pad states a row
+    folded = qaoa_mod.fold_pad_bits(probs, n_real)
+    check(torch.equal(qaoa_mod.fold_pad_bits(probs[:rows], n_real), folded[:rows]),
+          f"the pad fold of {rows} rows differs alone and in {SVC_SLOTS}")
+    plain_all = probs.view(SVC_SLOTS, -1, 2**n_real).sum(1)
+    plain_moves = not torch.equal(probs[:rows].view(rows, -1, 2**n_real).sum(1),
+                                  plain_all[:rows])
+    print(f"[21b service kernels] {line} | pad fold (n_real {n_real} of {SVC_QUBITS}): "
+          f"rows [0, {rows}) alone bitwise equal to the batch's (the plain torch.sum's "
+          f"bits {'move' if plain_moves else 'do not move'} with the row count here)")
+    del edges, weights, probs, folded, plain_all
+    torch.cuda.empty_cache()
+
+    # a warm-up drain on another seed's requests, then the measured one
+    warm = request_mix(4, SVC_RANGE, SVC_P, 0.0, seed=1)
+    run_service(torch, warm, ["t0"] * len(warm))
+    tracer = Tracer(record=True)
+    backend = EventBackend(torch, make_backend(None, "cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    svc, rids, wall = run_service(torch, graphs, tenants, tracer=tracer, backend=backend)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = svc.stats
+    check(sorted(svc.results) == sorted(rids) and len(set(rids)) == SVC_LOAD
+          and st.terminal == SVC_LOAD == st.completed,
+          f"terminal states: {st.completed} completed, {st.shed} shed, {st.expired} "
+          f"expired of {SVC_LOAD}")
+    knobs = {svc.results[r].plan.knobs for r in rids}
+    check(knobs == {KnobTuple(*SVC_KNOBS)}, f"planned knobs {knobs}")
+    cfg = svc.results[rids[0]].plan.to_config()
+    want = {k: v * st.dispatches for k, v in predicted_solve_launches(cfg).items()}
+    check(counts == want, f"service launches {counts} != {want}")
+
+    def spans(name):
+        return sum(sp.duration_s for sp in tracer.spans if sp.name == name)
+
+    solve_spans, device_s = spans("solve"), backend.device_s()
+    admission_s = spans("admission") + spans("partition")
+
+    solo_s, solo = 0.0, 0
+    for g, r in zip(graphs, rids):
+        res = svc.results[r]
+        if res.cached:
+            continue
+        t0 = time.perf_counter()
+        out = solve(g, res.plan.to_config(), device="cuda")
+        solo_s += time.perf_counter() - t0
+        solo += 1
+        check(out.cut_value == res.cut_value
+              and np.array_equal(out.assignment, res.assignment),
+              f"request {r} (n={g.n}): service cut {res.cut_value} vs solo "
+              f"{out.cut_value}, assignments "
+              f"{'equal' if np.array_equal(out.assignment, res.assignment) else 'differ'}")
+    first = {}
+    for g, r in zip(graphs, rids):
+        if not svc.results[r].cached:
+            first.setdefault(canonical_key(g), svc.results[r])
+    cached = [(g, svc.results[r]) for g, r in zip(graphs, rids) if svc.results[r].cached]
+    for g, res in cached:
+        src = first[canonical_key(g)]
+        replayed = float(problem_value(as_problem(g), torch.as_tensor(res.assignment)))
+        check(res.cut_value == src.cut_value == replayed,
+              f"cached replay {res.cut_value} (re-scored {replayed}) vs entry {src.cut_value}")
+
+    lat = st.latency
+    print(f"[21b service] {SVC_LOAD} requests (G(n, {SVC_P}), n in {SVC_RANGE}, "
+          f"{SVC_REPEAT:.0%} relabelled repeats, {SVC_TENANTS} tenants) at N={cfg.n_qubits} "
+          f"K={cfg.top_k} T={cfg.opt_steps} W={cfg.beam_width}, {SVC_SLOTS} slots: "
+          f"{wall:.3f} s, {SVC_LOAD / wall:.2f} req/s, p50 {lat.percentile(0.5):.3f} s, "
+          f"p99 {lat.percentile(0.99):.3f} s | {st.dispatches} dispatches, fill "
+          f"{st.fill_ratio:.4f}, {st.cache_served} from the cache, peak {peak_gb:.2f} GB | "
+          f"spans: admission (plan, canonical form, cache, partition) {admission_s:.3f} s, "
+          f"solve {solve_spans:.3f} s, merge {spans('merge'):.3f} s | launches "
+          f"= predicted x {st.dispatches} | {solo} uncached requests equal to solo "
+          f"solve() bit for bit (solo solves {solo_s:.3f} s in all), {len(cached)} "
+          f"cached replays equal their entries")
+    return {"svc": svc, "rids": rids, "graphs": graphs, "tenants": tenants,
+            "counts": counts, "throughput": SVC_LOAD / wall, "wall": wall, "subs": subs,
+            "cfg": cfg, "solve_spans": solve_spans, "device_s": device_s}
+
+
+def service_dispatch(s21, cfg=None):
+    """One dispatch of 21b's first 128 subgraphs as the scheduler makes it:
+    padded on the host, copied up from pinned memory, solved by the local
+    backend. ``cfg`` the `QAOAConfig` (default 21b's)."""
+    from repro_torch.core import qaoa as qaoa_mod
+    from repro_torch.service import edge_capacity, make_backend
+
+    e, w, m = qaoa_mod.pad_subgraph_arrays(
+        s21["subs"], SVC_QUBITS, e_pad=edge_capacity(SVC_QUBITS), n_rows=SVC_SLOTS,
+        device="cuda")
+    return make_backend(None, "cuda").solve_batch(cfg or s21["cfg"].qaoa_config(),
+                                                  e, w, m)
+
+
+def dispatch_phase(torch, s21) -> None:
+    """Phase 21c: a dispatch does not wait for the card. 128 rows padded and
+    dispatched as the scheduler does it: first as it comes (its wall, its
+    device time from first launch to last, the harvest's wait); then the
+    same path at
+    T = 1 behind a 300 ms spin kernel under ``set_sync_debug_mode("error")``:
+    it must return with the spin still running and an event recorded after
+    its last launch not complete (the loop body is the same at any T, so
+    a host read anywhere on the path would show here). At T = 30 a
+    dispatch is more launches than the card's launch queue holds, so
+    behind a long stall it returns once the queue has room; that is
+    timed and printed. Then 21b's ``solve`` spans against its dispatches'
+    device time: at least half of it (a dispatch that waited for the card
+    would leave the spans near 0)."""
+    import dataclasses
+
+    qcfg = s21["cfg"].qaoa_config()
+
+    def dispatch(cfg=qcfg):
+        return service_dispatch(s21, cfg)
+
+    def spin(ms: float) -> None:
+        torch.cuda._sleep(int(ms / ms_per_cycle))
+
+    want = dispatch().bitstrings.cpu()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    t0 = time.perf_counter()
+    res = dispatch()
+    disp_s = time.perf_counter() - t0
+    end.record()
+    done_at_return = end.query()
+    t0 = time.perf_counter()
+    bits = res.bitstrings.cpu()
+    wait_s = time.perf_counter() - t0
+    check(torch.equal(bits, want), "a second dispatch's candidates differ")
+    dev_ms = start.elapsed_time(end)
+
+    cal = 10_000_000
+    s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s0.record()
+    torch.cuda._sleep(cal)
+    s1.record()
+    s1.synchronize()
+    ms_per_cycle = s0.elapsed_time(s1) / cal
+    one = dataclasses.replace(qcfg, opt_steps=1)
+    want_one = dispatch(one).bitstrings.cpu()
+    spin_ms = 300.0
+    spin(spin_ms)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        res = dispatch(one)
+        behind_s = time.perf_counter() - t0
+        ev = torch.cuda.Event()
+        ev.record()
+        pending = not ev.query()
+    except RuntimeError as exc:
+        fail(f"the dispatch synchronised with the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t0 = time.perf_counter()
+    bits = res.bitstrings.cpu()
+    behind_wait_s = time.perf_counter() - t0
+    check(pending and behind_s * 1e3 < spin_ms / 2,
+          f"behind a {spin_ms:.0f} ms spin the T=1 dispatch took {behind_s * 1e3:.1f} ms "
+          f"and its event was {'pending' if pending else 'complete'} at return")
+    check(torch.equal(bits, want_one), "the dispatch behind the spin gave other candidates")
+    torch.cuda.synchronize()
+    spin(spin_ms)
+    t0 = time.perf_counter()
+    res = dispatch()
+    full_behind_s = time.perf_counter() - t0
+    check(torch.equal(res.bitstrings.cpu(), want), "T=30 behind the spin: other candidates")
+    ratio = s21["solve_spans"] / s21["device_s"]
+    check(ratio >= 0.5, f"solve spans {s21['solve_spans']:.3f} s < half the dispatches' "
+          f"device time {s21['device_s']:.3f} s")
+    print(f"[21c dispatch] {SVC_SLOTS} rows at N={SVC_QUBITS}, T={qcfg.opt_steps}: dispatch "
+          f"(pad + launches) {disp_s * 1e3:.2f} ms wall, device "
+          f"{dev_ms:.2f} ms first launch to last, event after it "
+          f"{'complete' if done_at_return else 'pending'} at return, harvest wait "
+          f"{wait_s * 1e3:.2f} ms | T=1 behind a {spin_ms:.0f} ms spin, sync debug mode "
+          f"'error': returned in {behind_s * 1e3:.2f} ms with its event pending, harvest "
+          f"waited {behind_wait_s * 1e3:.1f} ms, candidates equal | T={qcfg.opt_steps} "
+          f"behind the spin: returned in {full_behind_s * 1e3:.1f} ms (the launch queue "
+          f"full) | 21b: solve spans {s21['solve_spans']:.3f} s = {ratio:.2f} x the "
+          f"dispatches' device time {s21['device_s']:.3f} s (need >= 0.5)")
+
+
+def mesh_service_phase(torch, s21) -> None:
+    """Phase 21d: 21b's requests through the mesh backend, ``data=4`` on
+    this card (`LocalAxis` row blocks): every cut and assignment equal to
+    21b's, four devices described."""
+    svc, rids, wall = run_service(torch, s21["graphs"], s21["tenants"], mesh="data=4")
+    desc = svc.backend.describe()
+    check(desc["devices"] == 4, f"mesh backend {desc}")
+    for r, r0 in zip(rids, s21["rids"]):
+        a, b = svc.results[r], s21["svc"].results[r0]
+        check(a.cut_value == b.cut_value and a.cached == b.cached
+              and np.array_equal(a.assignment, b.assignment),
+              f"request {r}: data=4 cut {a.cut_value} vs local {b.cut_value}")
+    print(f"[21d mesh backend] {desc}: {SVC_LOAD} requests in {wall:.3f} s "
+          f"({SVC_LOAD / wall:.2f} req/s), {svc.stats.dispatches} dispatches; every cut "
+          f"and assignment equal to 21b's")
+
+
+def stream_phase(torch, s21) -> None:
+    """Phase 21e: two streamed requests: one snapshot a merge level,
+    best-known cuts that never fall, and a final assignment whose re-scored
+    cut is the streamed best."""
+    from repro_torch.core.graph import as_problem, problem_value
+    from repro_torch.core.partition import partition_for_solver
+    from repro_torch.service import ServiceConfig, SolveService
+
+    svc = SolveService(ServiceConfig(batch_slots=SVC_SLOTS, max_qubits=SVC_QUBITS,
+                                     recalibrate=False, enable_cache=False,
+                                     device="cuda"))
+    graphs = s21["graphs"][:2]
+    seen = {}
+    rids = [svc.submit(g, stream=True,
+                       on_update=lambda rid, lv, m, cut: seen.setdefault(rid, []).append(
+                           (lv, m, cut)))
+            for g in graphs]
+    svc.drain()
+    parts = []
+    for g, r in zip(graphs, rids):
+        res = svc.results[r]
+        m = partition_for_solver(g, res.plan.knobs.n_qubits).m
+        ups = seen[r]
+        check([u[0] for u in ups] == list(range(1, m + 1)), f"request {r}: levels "
+              f"{[u[0] for u in ups]} of {m}")
+        cuts = [u[2] for u in ups]
+        check(cuts == sorted(cuts), f"request {r}: best-known cuts fell: {cuts}")
+        final = float(problem_value(as_problem(g), torch.as_tensor(res.assignment)))
+        check(final == cuts[-1] == res.cut_value,
+              f"request {r}: final {final} vs streamed {cuts[-1]}")
+        parts.append(f"n={g.n}: {m} snapshots, cut {cuts[0]:.0f} -> {cuts[-1]:.0f}")
+    print("[21e stream] " + " | ".join(parts) + " | never falling; the final "
+          "assignment re-scores to the streamed best")
+
+
+def soak_phase(torch, cal_path: str, throughput: float) -> None:
+    """Phase 21f: the wall-clock SLA soak. ``arrival_trace(60, rate, (100,
+    400), 0.1, seed=0)`` with deadlines (2.0, 8.0) s at half 21b's
+    throughput, recalibration on, the prior from 21a: every request one
+    terminal state; attainment, shed, expired and downgrade rates."""
+    from collections import Counter
+
+    from repro_torch.service import CostModel, Planner, ServiceConfig, SolveService
+    from repro_torch.service.workload import arrival_trace, run_soak_wall
+
+    rate = throughput / 2
+    trace = arrival_trace(SOAK_LOAD, rate, SVC_RANGE, SVC_P, seed=0)
+    planner = Planner(cost_model=CostModel.from_bench_file(cal_path),
+                      max_qubits=SVC_QUBITS, batch_slots=SVC_SLOTS)
+    svc = SolveService(ServiceConfig(batch_slots=SVC_SLOTS, max_qubits=SVC_QUBITS,
+                                     max_inflight=2, recalibrate=True, device="cuda"),
+                       planner=planner)
+    rids, wall = run_soak_wall(svc, trace)
+    torch.cuda.synchronize()
+    st = svc.stats
+    states = Counter(svc.results[r].status for r in rids)
+    check(len(set(rids)) == SOAK_LOAD and sorted(svc.results) == sorted(rids)
+          and st.terminal == SOAK_LOAD
+          and set(states) <= {"completed", "shed", "expired"},
+          f"soak terminal states {dict(states)}, stats terminal {st.terminal}")
+    knobs = Counter(tuple(svc.results[r].plan.knobs[:4]) for r in rids
+                    if svc.results[r].status == "completed")
+    lat = st.latency
+    print(f"[21f soak] {SOAK_LOAD} arrivals at {rate:.2f} req/s (half of 21b, bursts x4), "
+          f"deadlines 2/8 s, recalibration on from 21a's prior: {wall:.3f} s | "
+          f"attainment {st.attainment:.4f}, completed {st.completed}, shed "
+          f"{st.shed / SOAK_LOAD:.4f}, expired {st.expired / SOAK_LOAD:.4f}, downgraded "
+          f"{st.downgraded / SOAK_LOAD:.4f} ({st.downgrade_events} re-plans), p50 "
+          f"{lat.percentile(0.5):.3f} s, p99 {lat.percentile(0.99):.3f} s | knobs (N, K, T, "
+          f"W) served {dict(knobs)} | recalibration {svc.planner.calibration.as_dict()}, "
+          f"c_solve {planner.base_model.c_solve:.4g} -> {svc.planner.cost_model.c_solve:.4g}")
+
+
+def service_profile_phase(torch, s21) -> None:
+    """Phase 21g, after every timed part of phase 21: 21b's drain again under
+    torch.profiler for the card's idle share, and the kernels one dispatch
+    launches; one dispatch's wall before and after (a profiler session
+    leaves later launches slower in this process, so it runs last)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dispatch_wall() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        service_dispatch(s21).bitstrings.cpu()
+        return time.perf_counter() - t0
+
+    before = dispatch_wall()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again, rids, wall = run_service(torch, s21["graphs"], s21["tenants"])
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / 1e6
+    check(all(again.results[r].cut_value == s21["svc"].results[r0].cut_value
+              for r, r0 in zip(rids, s21["rids"])), "the profiled drain's cuts differ")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        service_dispatch(s21).bitstrings.cpu()
+    kernels = sum(ev.count for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA)
+    after = dispatch_wall()
+    idle = (f"kernels busy {busy:.3f} s: idle {1 - busy / wall:.1%} of the profiled "
+            f"drain ({wall:.3f} s), {1 - busy / s21['wall']:.1%} of 21b's unprofiled "
+            f"drain ({s21['wall']:.3f} s)" if busy else
+            "idle share not measured (the profiler saw no device events)")
+    print(f"[21g service profile] {idle} | one dispatch: {kernels} kernels, wall "
+          f"{before * 1e3:.1f} ms before the profiler sessions, {after * 1e3:.1f} ms after")
+
+
 def main() -> int:
     import torch
 
@@ -1339,6 +1804,17 @@ def main() -> int:
           f"bounds use the {peak_key} data sheet: {mem_bw / 1e12:.2f} TB/s, "
           f"{f32_rate / 1e12:.0f} TFLOP/s f32, "
           f"{analysis.TENSOR_BF16_PEAKS[peak_key] / 1e12:.0f} TFLOP/s bf16 tensor cores")
+
+    # ---- 21. the solve service, run first: no profiler session before it ------
+    cal_path = calibration_phase(torch, root, smi)
+    s21 = service_phase(torch, dev, ops)
+    dispatch_phase(torch, s21)
+    mesh_service_phase(torch, s21)
+    stream_phase(torch, s21)
+    soak_phase(torch, cal_path, s21["throughput"])
+    service_profile_phase(torch, s21)
+    del s21["svc"]
+    torch.cuda.empty_cache()
 
     # ---- 2. kernels against their plain versions at the main path's shapes --
     rng = np.random.default_rng(0)
@@ -1779,6 +2255,9 @@ def main() -> int:
     # ---- 19-20. the data axis on one card -------------------------------------
     data_axis_phase(torch, dev, graph, phase7)
     headline_data_phase(torch, phase15)
+
+    for name in results:
+        results[name]["service_launches"] = s21["counts"][name]
 
     # ---- result lines ---------------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}))

@@ -9,7 +9,7 @@ name, and prints one JSON object whose values should all be ``true``. The
 mesh axes live in this process (`core.axis.LocalAxis`), as the JAX checks
 emulate 8 devices in one. Runs on ``--device`` (default the GPU; raises
 when it is missing). ``engine_interpret`` (JAX's Pallas interpret mode)
-and ``service_mesh`` (the solve service) have no counterpart here.
+has no counterpart here.
 """
 
 from __future__ import annotations
@@ -211,6 +211,51 @@ def check_problem_distributed(dev):
     return out
 
 
+def check_service_mesh(dev):
+    """Service-backend parity (``_dist_checks.py:404-457`` of the
+    reference): the same request mix through the single-device
+    `LocalBackend` and through `MeshBackend` (`solve_pool` over data=4)
+    gives bit-identical cuts and assignments, and every request not served
+    from the cache equals a solo `solve()` on its planned knobs.
+    Recalibration is off so both services plan alike (with it on, the
+    knobs depend on the clock)."""
+    from repro_torch.service import SLA, ServiceConfig, SolveService
+    from repro_torch.service.workload import request_mix, tenant_mix
+
+    graphs = request_mix(6, (30, 60), 0.2, 0.25, seed=3)
+    tenants = tenant_mix(6, 2, seed=3)
+    sla = SLA(deadline_s=20.0)
+
+    def run_service(mesh):
+        svc = SolveService(ServiceConfig(
+            batch_slots=8, max_qubits=8, mesh=mesh, max_inflight=2,
+            recalibrate=False, device=str(dev)))
+        rids = [svc.submit(g, sla, tenant=t) for g, t in zip(graphs, tenants)]
+        svc.drain()
+        return svc, rids
+
+    svc_l, rids_l = run_service(None)
+    svc_m, rids_m = run_service("data=4")
+    out = {"backends_parity": True, "solo_parity": True}
+    for g, rl, rm in zip(graphs, rids_l, rids_m):
+        ra, rb = svc_l.results[rl], svc_m.results[rm]
+        out["backends_parity"] &= bool(
+            ra.cut_value == rb.cut_value
+            and np.array_equal(ra.assignment, rb.assignment))
+        if not ra.cached:
+            solo = para_mod.solve(g, ra.plan.to_config(), device=dev)
+            out["solo_parity"] &= bool(
+                ra.cut_value == solo.cut_value
+                and np.array_equal(ra.assignment, solo.assignment))
+    out["mesh_backend_engaged"] = bool(
+        svc_m.backend.describe()["devices"] == 4 and svc_m.stats.dispatches > 0)
+    out["tenants_accounted"] = bool(
+        set(svc_m.stats.tenants) == set(tenants)
+        and sum(t.completed for t in svc_m.stats.tenants.values()) == 6)
+    out["async_window_used"] = bool(svc_m.stats.max_inflight_seen >= 2)
+    return out
+
+
 CHECKS = {
     "solve_pool": check_solve_pool,
     "sharded_qaoa": check_sharded_qaoa,
@@ -218,6 +263,7 @@ CHECKS = {
     "engine_grad": check_engine_grad,
     "solve_distributed": check_solve_distributed,
     "problem_distributed": check_problem_distributed,
+    "service_mesh": check_service_mesh,
 }
 
 

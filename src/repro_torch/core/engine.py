@@ -258,8 +258,10 @@ def adam_scan(grad_fn: Callable, params: tuple, steps: int,
     m = tuple(torch.zeros_like(p) for p in params)
     v = tuple(torch.zeros_like(p) for p in params)
     dev = params[0].device
-    b1 = torch.tensor(beta1, dtype=torch.float32, device=dev)
-    b2 = torch.tensor(beta2, dtype=torch.float32, device=dev)
+    # filled on the device: a tensor made from a host value is a copy that
+    # waits for the stream
+    b1 = torch.full((), beta1, dtype=torch.float32, device=dev)
+    b2 = torch.full((), beta2, dtype=torch.float32, device=dev)
     for i in torch.arange(steps, dtype=torch.float32, device=dev):
         g = grad_fn(params)
         m = tuple(beta1 * a + (1 - beta1) * b for a, b in zip(m, g))

@@ -7,19 +7,21 @@ row by the K candidates of its subgraph, oriented so the shared vertex
 agrees (an int8 XOR flip), scores the level's bucket of original-graph
 edges and linear terms incrementally, and keeps the best ``beam_width``
 rows. With ``beam_width >= 2·K^M`` nothing is pruned and the sweep is the
-paper's exhaustive search. Only the unstriped single-device sweep is
-ported; the striped and streaming forms are on ROADMAP.md.
+paper's exhaustive search. `merge_scan` sweeps every level in one call
+(striped over shards where asked); `merge_stream` is its anytime form, one
+level at a time with a complete best-known cut after each.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Iterator, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.partition import Partition
 from repro_torch.core.engine import stable_topk
+from repro_torch.obs import trace as trace_mod
 
 NEG = -1e30  # score of an empty frontier row
 
@@ -224,6 +226,81 @@ def merge_scan(plan: MergePlan, beam_width: int, shard_id=None,
                       cut_value=beam_score[rows, best], beam_assign=beam_assign,
                       beam_score=beam_score)
     return res if batched else MergeResult(*(x[0] for x in res))
+
+
+class AnytimeSnapshot(NamedTuple):
+    """One anytime-merge update: the best-known *complete* assignment after
+    a merge level, with the suffix vertices filled greedily."""
+
+    level: int  # levels merged so far (1..M)
+    n_levels: int  # M
+    cut_value: float  # objective of `assignment` on the full graph
+    assignment: np.ndarray  # (V,) int8 complete assignment
+    is_final: bool  # True on the last level (beam fully merged)
+
+
+def _complete_suffix(plan_host, assign_pad: np.ndarray, level: int) -> np.ndarray:
+    """Fill levels (level+1..M-1) of a partial assignment with each
+    subgraph's top-1 candidate, oriented to agree on the shared vertex:
+    the greedy completion that turns a frontier row into a full cut."""
+    lo, cand_bits, n_max = plan_host
+    a = assign_pad.copy()
+    for j in range(level + 1, lo.shape[0]):
+        bits = cand_bits[j, 0]  # (n_max,) top-1 candidate
+        flip = np.int8(bits[0] ^ a[lo[j]])
+        a[lo[j]: lo[j] + n_max] = bits ^ flip
+    return a
+
+
+def merge_stream(plan: MergePlan, beam_width: int) -> Iterator[AnytimeSnapshot]:
+    """Anytime form of `merge_scan`: yield the best-known complete cut
+    after every merge level (``merge.py:404-448`` of the reference).
+
+    Runs the same `_level_step` recurrence as `merge_scan`, one level a
+    call, so the caller can take an early answer between levels. After
+    level l the best frontier row covers vertices [0, hi_l); the remaining
+    subgraphs are completed greedily with their top-1 candidates (oriented
+    at the shared vertex), and the cut is scored on the host from the
+    plan's edge buckets (every edge and linear term lies in exactly one).
+    The final snapshot's frontier is the fully merged beam. Each level's
+    ``merge_level`` span closes before its snapshot is yielded: a consumer
+    may hold the generator between yields, and that wait is not the
+    merge's.
+    """
+    m = int(plan.lo.shape[0])
+    lo_h = plan.lo.cpu().numpy()
+    bits_h = plan.cand_bits.cpu().numpy()
+    eu_h, ev_h = plan.edge_u.cpu().numpy(), plan.edge_v.cpu().numpy()
+    ew_h, lin_h = plan.edge_w.cpu().numpy(), plan.lin.cpu().numpy()
+    plan_host = (lo_h, bits_h, plan.n_max)
+    beam_assign, beam_score = _seed_frontier(plan, beam_width, lo_h)
+    beam_assign, beam_score = beam_assign[None], beam_score[None]
+
+    def snapshot(level: int) -> AnytimeSnapshot:
+        best = int(np.argmax(beam_score[0].cpu().numpy()))
+        partial = beam_assign[0, best].cpu().numpy()
+        full = _complete_suffix(plan_host, partial, level)
+        crossed = (full[eu_h] ^ full[ev_h]).astype(np.float32)
+        cut = float(np.sum(crossed * ew_h))
+        for l in range(m):
+            win = full[lo_h[l]: lo_h[l] + plan.n_max].astype(np.float32)
+            cut += float(lin_h[l] @ win)
+        return AnytimeSnapshot(level=level + 1, n_levels=m, cut_value=cut,
+                               assignment=full[: plan.n_vert],
+                               is_final=level == m - 1)
+
+    tr = trace_mod.get_tracer()
+    with tr.span("merge_level", level=1, n_levels=m):
+        snap = snapshot(0)
+    yield snap
+    for l in range(1, m):
+        with tr.span("merge_level", level=l + 1, n_levels=m):
+            beam_assign, beam_score = _level_step(
+                beam_assign, beam_score, int(lo_h[l]), plan.cand_bits[l],
+                plan.edge_u[l], plan.edge_v[l], plan.edge_w[l], plan.lin[l],
+                k=plan.k, n_max=plan.n_max, w_width=beam_width)
+            snap = snapshot(l)
+        yield snap
 
 
 def global_winner(res: MergeResult, axis, shard_id: torch.Tensor):

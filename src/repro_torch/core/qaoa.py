@@ -77,28 +77,42 @@ def optimize_params(cutv, n: int, cfg: QAOAConfig):
     return engine.adam_scan(grad_fn, params, cfg.opt_steps, cfg.learning_rate)
 
 
+def fold_pad_bits(probs, n_real: int):
+    """(R, 2^n) probabilities → (R, 2^n_real) marginals over the real
+    qubits. The padding qubits are the high bits, so the fold halves the
+    pad axis until it is gone: each step adds the upper half onto the
+    lower, elementwise. The order of the adds is fixed by the shape alone,
+    so a row's bits depend neither on the other rows nor on the device (a
+    reduction kernel may pick its split from the row count)."""
+    x = probs.reshape(probs.shape[0], -1, 2**n_real)
+    while x.shape[1] > 1:
+        half = x.shape[1] // 2
+        x = x[:, :half] + x[:, half:]
+    return x[:, 0]
+
+
 def topk_marginal(re, im, n: int, real_mask, k: int):
     """Top-k bitstrings of each row's marginal over its real qubits.
 
-    Padding qubits are the high bits, so folding their amplitude mass onto
-    the pad-bits-zero representative is a reshape and a sum over the pad
-    axis: a fixed order, where a scatter-add would add in atomic order on
-    the GPU. ``real_mask`` (B,) is 2^n_real − 1 per row; rows with the same
-    n_real (at most two values for a balanced partition) fold together.
-    Returns (indices (B, k) int32, marginals (B, k) f32).
+    ``real_mask`` (B,) is 2^n_real − 1 per row, on the host (a numpy array
+    or a CPU tensor): it says which rows fold together, which is host work,
+    so nothing here waits for the card. Rows with the same n_real (at most
+    two values for a balanced partition, and 1 for filler rows) fold
+    together (`fold_pad_bits`). Returns (indices (B, k) int32, marginals
+    (B, k) f32).
     """
+    if isinstance(real_mask, torch.Tensor) and real_mask.device.type != "cpu":
+        raise ValueError("real_mask must be on the host")
     probs = re * re + im * im
     b = probs.shape[0]
-    masks = [int(m) for m in real_mask.tolist()]
+    n_real = np.array([int(m).bit_length() for m in np.asarray(real_mask)])
     inds = torch.empty((b, k), dtype=torch.int32, device=probs.device)
     vals = torch.empty((b, k), dtype=torch.float32, device=probs.device)
-    for n_real in sorted({m.bit_length() for m in masks}):
-        rows = torch.tensor([r for r, m in enumerate(masks)
-                             if m.bit_length() == n_real], device=probs.device)
-        marg = probs[rows].reshape(len(rows), 2 ** (n - n_real), 2**n_real)
-        marg = marg.sum(dim=1)
-        if k > 2**n_real:  # the keys past 2^n_real carry zero mass
-            marg = torch.nn.functional.pad(marg, (0, 2**n - 2**n_real))
+    for nr in sorted(set(n_real.tolist())):
+        rows = to_device(np.flatnonzero(n_real == nr), probs.device)
+        marg = fold_pad_bits(probs[rows], nr)
+        if k > 2**nr:  # the keys past 2^n_real carry zero mass
+            marg = torch.nn.functional.pad(marg, (0, 2**n - 2**nr))
         v, i = engine.stable_topk(marg, k)
         inds[rows] = i.to(torch.int32)
         vals[rows] = v
@@ -109,9 +123,12 @@ def solve_subgraph_batch(edges, weights, real_mask, cfg: QAOAConfig,
                          linear=None) -> QAOAResult:
     """End-to-end QAOA solve of a padded subgraph batch.
 
-    edges (B, E, 2) int32, weights (B, E) f32, real_mask (B,) int32, and
-    ``linear`` (B, n_qubits) f32 or None, all on one device. The whole
-    batch runs as one program: one kernel launch per op covers every row.
+    edges (B, E, 2) int32, weights (B, E) f32 and ``linear`` (B, n_qubits)
+    f32 or None on one device; real_mask (B,) on the host. The whole batch
+    runs as one program: one kernel launch per op covers every row. On the
+    card nothing here reads the card back, so the call returns once its
+    launches are queued (or, behind a stall longer than the card's launch
+    queue, once the queue has room); reading the result waits for them.
     """
     n = cfg.n_qubits
     cutv = ops.cutvals(n, edges, weights, linear)
@@ -123,9 +140,22 @@ def solve_subgraph_batch(edges, weights, real_mask, cfg: QAOAConfig,
     return QAOAResult(bits, probs, exp, gammas, betas)
 
 
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``. To the card it goes through
+    pinned memory with ``non_blocking=True``: a copy from pageable memory
+    waits for the stream, and with it for every launch queued before."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def pad_subgraph_arrays(subgraphs, n_qubits: int, e_pad: int | None = None,
                         n_rows: int | None = None, device="cpu"):
-    """Stack per-subgraph (edges, weights, real_mask) into batch tensors.
+    """Stack per-subgraph (edges, weights, real_mask) into batch tensors:
+    edges and weights on ``device``, the masks on the host (the solve
+    groups rows by them there).
 
     ``n_rows`` pads the batch with empty filler rows (mask 1, no edges).
     """
@@ -144,9 +174,8 @@ def pad_subgraph_arrays(subgraphs, n_qubits: int, e_pad: int | None = None,
         edges[i, :m] = np.asarray(g.edges)
         weights[i, :m] = np.asarray(g.weights)
         masks[i] = (1 << g.n) - 1
-    return (torch.as_tensor(edges, device=device),
-            torch.as_tensor(weights, device=device),
-            torch.as_tensor(masks, device=device))
+    return (to_device(edges, device), to_device(weights, device),
+            torch.from_numpy(masks))
 
 
 def pad_linear_arrays(linears, n_qubits: int, n_rows: int | None = None,
@@ -161,4 +190,4 @@ def pad_linear_arrays(linears, n_qubits: int, n_rows: int | None = None,
         l = np.asarray(l, dtype=np.float32)
         assert l.shape[0] <= n_qubits, (l.shape[0], n_qubits)
         out[i, : l.shape[0]] = l
-    return torch.as_tensor(out, device=device)
+    return to_device(out, device)

@@ -94,6 +94,28 @@ def test_data_axis_entry_points_default_to_cuda(monkeypatch, entry):
         run()
 
 
+@pytest.mark.parametrize("entry", ["service", "local_backend", "mesh_backend",
+                                   "serve_cli", "service_mesh_check"])
+def test_service_entry_points_default_to_cuda(monkeypatch, entry):
+    """The solve service, its backends, the serve CLI and the service
+    self-check raise where CUDA is missing."""
+    from repro_torch.core import _dist_checks
+    from repro_torch.launch import serve_maxcut
+    from repro_torch.service import ServiceConfig, SolveService, make_backend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    run = {
+        "service": lambda: SolveService(ServiceConfig()),
+        "local_backend": lambda: make_backend(),
+        "mesh_backend": lambda: make_backend("data=4"),
+        "serve_cli": lambda: serve_maxcut.run(["--requests", "2", "--n-min", "20",
+                                               "--n-max", "30", "--qubits", "6"]),
+        "service_mesh_check": lambda: _dist_checks.main(["service_mesh"]),
+    }[entry]
+    with pytest.raises(RuntimeError, match="is_available"):
+        run()
+
+
 def test_chip_smoke_fails_without_gpu_and_without_package(tmp_path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     env.pop("PYTHONPATH", None)
