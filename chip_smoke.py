@@ -72,8 +72,17 @@ runs these phases, each printing one line, failing on the first fault:
     its batch has run, with no stream sync; (d) the same requests over
     mesh ``data=4`` equal to (b); (e) two streamed requests; (f) a
     wall-clock soak with deadlines at half (b)'s throughput;
+22. the LM serve path (``repro_torch.models``, ``repro_torch.serving``):
+    (a) each of the ten LM archs at its reduced config, card against CPU
+    (forward, prefill, 8 teacher-forced decode steps; MoE bitwise
+    repeatable); (b) qwen1.5-0.5b and (c) mamba2-1.3b at published widths
+    and depth through ``python -m repro_torch.launch.serve --full-size``'s
+    entry point: generate = argmax(forward), that forward against the CPU's,
+    prefill and decode times against a decode step's bound, tokens/s, peak
+    memory; (d), last of all, one profiled decode step of (b);
 
-then one JSON line of per-kernel numbers (``launches`` from phase 4's
+Phases 21a-f and 22a-c run right after phase 1, before the first
+profiler trace (21g); then one JSON line of per-kernel numbers (``launches`` from phase 4's
 solve, ``service_launches`` from 21b's drain), the nvidia-smi line, and
 ``{"ok": true, ...}`` as the last line. It exits non-zero, printing no
 result, where CUDA is missing or the package is not beside it.
@@ -81,6 +90,7 @@ result, where CUDA is missing or the package is not beside it.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -107,6 +117,13 @@ SVC_LOAD, SVC_RANGE, SVC_P, SVC_REPEAT, SVC_TENANTS = 48, (100, 400), 0.1, 0.25,
 SVC_SLOTS, SVC_QUBITS, SVC_KNOBS = 128, 12, (12, 4, 30, 512)  # knobs (N, K, T, W)
 CAL_SIZES, CAL_P = (1000, 2000), 0.02  # 21a: benchmarks/large_scale.py --distributed
 SOAK_LOAD = 60  # 21f: arrivals of the wall-clock soak
+# the LM serve path (phase 22): 22a every family's reduced config, card
+# against CPU on 2 x 16 tokens (a prefill of 8, then 8 teacher-forced decode
+# steps); 22b-c the serve CLI's defaults at published widths and depth
+LM_B, LM_S, LM_PROMPT = 2, 16, 8
+LM_SERVE = ("qwen1.5-0.5b", "mamba2-1.3b")
+LM_SERVE_ARGS = ("--full-size", "--batch", "4", "--prompt-len", "16", "--new-tokens", "32")
+LM_ATOL, LM_RTOL = 1e-4, 1e-4  # logits, card against CPU, f32 at every width
 CPU_BAND = 0.02  # of Σ|w|: the default-steps band of tests/test_torch_core.py
 TIE_RTOL = 1e-6  # marginals this close count as a tie the last ulp may break
 
@@ -1769,6 +1786,228 @@ def service_profile_phase(torch, s21) -> None:
           f"{before * 1e3:.1f} ms before the profiler sessions, {after * 1e3:.1f} ms after")
 
 
+def lm_batch(torch, cfg, bsz: int, seq: int, seed: int) -> dict:
+    """Tokens, and a VLM's patches or an audio model's frames, on the CPU."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (bsz, seq)))}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.as_tensor(rng.standard_normal(
+            (bsz, cfg.frontend_seq, cfg.d_model), dtype=np.float32))
+    if cfg.family == "audio":
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (bsz, cfg.encoder_seq, cfg.d_model), dtype=np.float32))
+    return batch
+
+
+def logits_err(torch, got, want) -> float:
+    """max |got − want|, failing past LM_ATOL + LM_RTOL·|want|."""
+    got, want = got.float().cpu(), want.float().cpu()
+    check(bool(torch.isfinite(got).all()), "non-finite logits on the card")
+    check(torch.allclose(got, want, atol=LM_ATOL, rtol=LM_RTOL),
+          f"logits differ: max |card - CPU| {(got - want).abs().max().item():.3g}")
+    return (got - want).abs().max().item()
+
+
+def lm_families_phase(torch, dev) -> None:
+    """Phase 22a: every LM family at its reduced config, one CPU init copied
+    to the card: ``forward`` over 2 x 16 tokens, ``prefill`` of the first 8
+    and 8 teacher-forced ``decode_step``s, card against CPU within
+    LM_ATOL + LM_RTOL·|logit|; MoE's ``moe_apply`` twice on the card, bitwise
+    equal."""
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+
+    errs = {}
+    with torch.inference_mode():
+        for i, arch in enumerate(configs.lm_arch_ids()):
+            cfg = configs.get_reduced(arch)
+            model = build_model(cfg)
+            host = model.init(i, device="cpu")
+            card = copy.deepcopy(host).to(dev)
+            batch = lm_batch(torch, cfg, LM_B, LM_S, seed=i)
+            on = {k: v.to(dev) for k, v in batch.items()}
+            err = logits_err(torch, model.forward(card, on)[0], model.forward(host, batch)[0])
+            extra = cfg.frontend_seq if cfg.family == "vlm" else 0
+            s_max = LM_S + extra
+            cut = lambda b: {**b, "tokens": b["tokens"][:, :LM_PROMPT]}  # noqa: E731
+            lc, sc = model.prefill(card, cut(on), s_max)
+            lh, sh = model.prefill(host, cut(batch), s_max)
+            err = max(err, logits_err(torch, lc, lh))
+            for j in range(LM_PROMPT, LM_S):
+                lc, sc = model.decode_step(card, on["tokens"][:, j], sc)
+                lh, sh = model.decode_step(host, batch["tokens"][:, j], sh)
+                err = max(err, logits_err(torch, lc, lh))
+            note = ""
+            if cfg.n_experts:
+                x = torch.randn((LM_B, LM_S, cfg.d_model), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(i))
+                blk = card.blocks[0].moe
+                kw = dict(k=cfg.experts_per_token, capacity_factor=cfg.moe_capacity_factor,
+                          dense_residual=cfg.moe_dense_residual)
+                a, b = moe_mod.moe_apply(blk, x, **kw)[0], moe_mod.moe_apply(blk, x, **kw)[0]
+                check(torch.equal(a, b), f"{arch}: moe_apply differs on a rerun")
+                note = ", moe_apply bitwise repeatable"
+            errs[cfg.name] = f"{err:.2e}{note}"
+            del card
+    torch.cuda.empty_cache()
+    print(f"[22a lm families] {len(errs)} archs at their reduced configs, forward over "
+          f"{LM_B}x{LM_S} tokens, prefill of {LM_PROMPT} and {LM_S - LM_PROMPT} "
+          f"teacher-forced decode steps, card = CPU within atol {LM_ATOL} rtol {LM_RTOL}; "
+          f"max |card - CPU| per arch: " + ", ".join(f"{k} {v}" for k, v in errs.items()))
+
+
+def decode_bytes(cfg, params, bsz: int, prompt: int, new: int) -> tuple:
+    """(weight bytes, mean state bytes a decode step must move): every
+    parameter read once; each cache's positions up to the step's read and
+    its new entry written, each SSM state and conv history read and
+    written."""
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    f = 4  # f32 activations and caches
+    lengths = [prompt + j for j in range(1, new)]  # positions decode step j attends
+    state = 0.0
+    kv_layers = (0 if cfg.family == "ssm" else
+                 sum(k == "ssm_attn" for k in cfg.layer_kinds()) if cfg.family == "hybrid"
+                 else cfg.n_layers)
+    if kv_layers:
+        per_pos = 2 * kv_layers * bsz * cfg.n_kv_heads * cfg.head_dim_ * f
+        state += per_pos * (statistics.mean(lengths) + 1)
+    if cfg.family in ("ssm", "hybrid"):
+        h = cfg.ssm_heads * cfg.ssm_state * cfg.ssm_head_dim
+        conv = (cfg.ssm_conv_width - 1) * (cfg.d_inner + 2 * cfg.ssm_state)
+        state += 2 * cfg.n_layers * bsz * (h + conv) * f
+    return weights, state
+
+
+def lm_serve_phase(torch, arch: str, mem_bw: float, tag: str) -> dict:
+    """Phases 22b-c: ``python -m repro_torch.launch.serve --arch <arch>
+    --full-size --batch 4 --prompt-len 16 --new-tokens 32`` in this
+    process, then its engine again, warm, on the same prompt (the same
+    tokens). Every generated token must equal the argmax of one forward
+    over prompt + generated tokens at its position wherever that
+    position's top-2 margin exceeds 2·LM_ATOL, and that forward's logits
+    must hold against a CPU forward of the same weights. Prints prefill
+    and decode times (CUDA events), tokens/s, peak memory, and a decode
+    step's bound: weights plus the state it moves over the card's rate.
+    Prefill and decode steps must not synchronise with the card."""
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import LM
+
+    argv = ["--arch", arch, *LM_SERVE_ARGS, "--device", "cuda"]
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # what earlier phases keep
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    served = serve.run(argv)
+    cold_s = time.perf_counter() - t0
+    engine, out = served.engine, served.tokens
+    cold = engine.step_ms()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = engine.generate(served.batch)
+    warm_s = time.perf_counter() - t0
+    warm = engine.step_ms()
+    warm_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(np.array_equal(again, out), f"{arch}: a warm rerun generated other tokens")
+    model, cfg, params = engine.model, engine.model.cfg, engine.params
+    bsz, new = out.shape
+    prompt = served.batch["tokens"].shape[1]
+
+    # nothing from prefill to the last decode step waits for the card
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            logits, state = model.prefill(params, served.batch, prompt + 5)
+            tok = logits[:, 0].argmax(-1)
+            for _ in range(4):
+                logits, state = model.decode_step(params, tok, state)
+                tok = logits.argmax(-1)
+    except RuntimeError as exc:
+        fail(f"{arch}: prefill or a decode step synchronised with the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    # the invariant at full width: generate = argmax(forward)
+    seq = torch.cat([served.batch["tokens"], torch.as_tensor(out, device="cuda")], dim=1)
+    with torch.inference_mode():
+        logits = model.forward(params, {**served.batch, "tokens": seq})[0]
+        chose = logits[:, prompt - 1: prompt - 1 + new].float()
+        top2 = torch.topk(chose, 2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1] > 2 * LM_ATOL).cpu().numpy()
+        argmax = chose.argmax(-1).cpu().numpy()
+        check(np.array_equal(argmax[clear], out[clear]),
+              f"{arch}: {int((argmax[clear] != out[clear]).sum())} generated tokens "
+              f"differ from argmax(forward) at clear margins")
+        host = LM(cfg, device="cpu")
+        host.load_state_dict(params.state_dict())
+        t0 = time.perf_counter()
+        want = model.forward(host, {k: v.cpu() for k, v in
+                                    {**served.batch, "tokens": seq}.items()})[0]
+        cpu_s = time.perf_counter() - t0
+        err = logits_err(torch, logits, want)
+    del host, want, logits, chose
+
+    weights, state = decode_bytes(cfg, params, bsz, prompt, new)
+    bound_ms = (weights + state) / mem_bw * 1e3
+    dec = statistics.median(warm["decode_ms"])
+    print(f"[{tag} lm serve] {cfg.name} at published widths and depth ({cfg.n_layers} "
+          f"layers, d={cfg.d_model}, vocab {cfg.vocab_size}, {weights / 4e6:.1f} M params "
+          f"in f32, {weights / 1e9:.3f} GB) through `python -m repro_torch.launch.serve "
+          f"{' '.join(argv[:-2])}`: {bsz}x{new} tokens | cold run {cold_s:.3f} s (prefill "
+          f"{cold['prefill_ms']:.3f} ms, decode median "
+          f"{statistics.median(cold['decode_ms']):.3f} ms), warm generate {warm_s:.3f} s: "
+          f"prefill {warm['prefill_ms']:.3f} ms, decode {dec:.3f} ms a step (median of "
+          f"{len(warm['decode_ms'])}; min {min(warm['decode_ms']):.3f}, max "
+          f"{max(warm['decode_ms']):.3f}), {bsz * new / warm_s:.1f} tokens/s | bound of a "
+          f"decode step {bound_ms:.3f} ms (weights {weights / 1e9:.3f} GB + state "
+          f"{state / 1e9:.3f} GB over {mem_bw / 1e12:.2f} TB/s): {bound_ms / dec:.3f} of it "
+          f"| peak {peak_gb - held_gb:.2f} GB (cold run, init included), "
+          f"{warm_gb - held_gb:.2f} GB (warm generate) above the {held_gb:.2f} GB earlier "
+          f"phases hold | generate = argmax(forward) at {int(clear.sum())} of "
+          f"{clear.size} positions (the rest within 2*{LM_ATOL} of a tie) | forward over "
+          f"{bsz}x{prompt + new} card = CPU, max |diff| {err:.2e} (CPU forward "
+          f"{cpu_s:.2f} s) | prefill and 4 decode steps under "
+          f"set_sync_debug_mode('error'): no sync")
+    return {"engine": engine, "batch": served.batch, "decode_ms": dec}
+
+
+def lm_profile_phase(torch, s22) -> None:
+    """Phase 22d, after every timed part of the smoke: one profiled decode
+    step of 22b's model: the kernels it launches, the card's busy time
+    against the step's wall, so the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine = s22["engine"]
+    model, params, batch = engine.model, engine.params, s22["batch"]
+    prompt = batch["tokens"].shape[1]
+    with torch.inference_mode():
+        logits, state = model.prefill(params, batch, prompt + 8)
+        tok = logits[:, 0].argmax(-1)
+        for _ in range(2):  # warm
+            logits, state = model.decode_step(params, tok, state)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            logits, state = model.decode_step(params, tok, state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    kernels = sum(ev.count for ev in evs)
+    busy = sum(ev.self_device_time_total for ev in evs) / 1e3
+    idle = (f"kernels busy {busy:.3f} ms of the step's {wall * 1e3:.3f} ms wall: idle "
+            f"{1 - busy / (wall * 1e3):.1%}, {1 - busy / s22['decode_ms']:.1%} of 22b's "
+            f"unprofiled median step" if busy else
+            "idle share not measured (the profiler saw no device events)")
+    top = sorted(evs, key=lambda ev: -ev.self_device_time_total)[:3]
+    print(f"[22d lm decode profile] {model.cfg.name}, one decode step at B="
+          f"{batch['tokens'].shape[0]}: {kernels} kernels, {idle} ("
+          f"{s22['decode_ms']:.3f} ms) | most device time: " + ", ".join(
+              f"{ev.key[:40]} {ev.self_device_time_total / 1e3:.3f} ms x{ev.count}"
+              for ev in top))
+
+
 def main() -> int:
     import torch
 
@@ -1812,6 +2051,12 @@ def main() -> int:
     mesh_service_phase(torch, s21)
     stream_phase(torch, s21)
     soak_phase(torch, cal_path, s21["throughput"])
+    # ---- 22. the LM serve path, before the first profiler trace ---------------
+    lm_families_phase(torch, dev)
+    s22 = lm_serve_phase(torch, LM_SERVE[0], mem_bw, "22b")
+    lm_serve_phase(torch, LM_SERVE[1], mem_bw, "22c")
+    torch.cuda.empty_cache()
+
     service_profile_phase(torch, s21)
     del s21["svc"]
     torch.cuda.empty_cache()
@@ -2258,6 +2503,7 @@ def main() -> int:
 
     for name in results:
         results[name]["service_launches"] = s21["counts"][name]
+    lm_profile_phase(torch, s22)
 
     # ---- result lines ---------------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}))
