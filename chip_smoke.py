@@ -80,8 +80,17 @@ runs these phases, each printing one line, failing on the first fault:
     entry point: generate = argmax(forward), that forward against the CPU's,
     prefill and decode times against a decode step's bound, tokens/s, peak
     memory; (d), last of all, one profiled decode step of (b);
+23. the train path (``repro_torch.training``, ``repro_torch.launch.train``):
+    (a) one train step of each family's reduced config (dense, MoE, SSM,
+    hybrid, VLM, audio), card against CPU, gradients bitwise equal on a
+    rerun on the card; (b) qwen1.5-0.5b and (c) mamba2-1.3b at published
+    widths and depth through ``python -m repro_torch.launch.train``'s entry
+    point, 20 steps of 8 x 128 tokens: step time against its bound,
+    tokens/s, peak memory with remat off and ``batch_dots``, a falling loss;
+    (d) qwen's 6 steps straight against 3, a crash and a resume, bitwise;
+    (e), at the end with the other profiles, one profiled qwen step;
 
-Phases 21a-f and 22a-c run right after phase 1, before the first
+Phases 21a-f, 22a-c and 23a-d run right after phase 1, before the first
 profiler trace (21g); then one JSON line of per-kernel numbers (``launches`` from phase 4's
 solve, ``service_launches`` from 21b's drain), the nvidia-smi line, and
 ``{"ok": true, ...}`` as the last line. It exits non-zero, printing no
@@ -124,6 +133,19 @@ LM_B, LM_S, LM_PROMPT = 2, 16, 8
 LM_SERVE = ("qwen1.5-0.5b", "mamba2-1.3b")
 LM_SERVE_ARGS = ("--full-size", "--batch", "4", "--prompt-len", "16", "--new-tokens", "32")
 LM_ATOL, LM_RTOL = 1e-4, 1e-4  # logits, card against CPU, f32 at every width
+# the train path (phase 23): 23a one step of each family's reduced config,
+# card against CPU; 23b-c the train CLI at published widths (B = 8, S = 128,
+# 20 steps), peaks with remat off and batch_dots at TRAIN_PEAK_SEQ; 23d crash
+# and resume; 23e, with the other profiles at the end, one profiled step
+TRAIN_FAMILIES = ("qwen1_5_0_5b", "moonshot_v1_16b_a3b", "mamba2_1_3b", "zamba2_2_7b",
+                  "internvl2_2b", "whisper_medium")
+TRAIN_B, TRAIN_S = 2, 32
+LM_TRAIN = ("qwen1.5-0.5b", "mamba2-1.3b")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 20
+# S of the remat off / batch_dots peaks: mamba2's activations without remat at
+# S = 512 (~20 (B, S, 4096) f32 tensors a layer, 48 layers) would not fit
+TRAIN_PEAK_SEQ = {"qwen1.5-0.5b": 512, "mamba2-1.3b": 128}
+GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-4  # of each reference leaf's max |g|, as the CPU tests
 CPU_BAND = 0.02  # of Σ|w|: the default-steps band of tests/test_torch_core.py
 TIE_RTOL = 1e-6  # marginals this close count as a tie the last ulp may break
 
@@ -2008,6 +2030,280 @@ def lm_profile_phase(torch, s22) -> None:
               for ev in top))
 
 
+def train_families_phase(torch, dev) -> None:
+    """Phase 23a: one train step of each family at its reduced config, one
+    CPU init copied to the card, the same batch: the loss within 1e-5
+    relative and every gradient within GRAD_ATOL + GRAD_RTOL·max|g| of its
+    reference leaf, card against CPU, under remat ``batch_dots``; the card's
+    gradients bitwise equal on a rerun and with remat off; then the whole
+    step (AdamW included) on the card."""
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import reference_leaf
+    from repro_torch.training import data
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as TT
+
+    tcfg = TT.TrainConfig(adamw=opt.AdamWConfig(learning_rate=1e-3, warmup_steps=0,
+                                                total_steps=100))
+    errs = {}
+    for i, arch in enumerate(TRAIN_FAMILIES):
+        cfg = configs.get_reduced(arch)
+        model = build_model(cfg)
+        host = model.init(i, device="cpu")
+        card = copy.deepcopy(host).to(dev)
+        batch = data.synthetic_batch(cfg, data.DataConfig(seed=i, batch=TRAIN_B,
+                                                          seq=TRAIN_S), 0)
+        on = {k: v.to(dev) for k, v in batch.items()}
+        lc, _, gc = TT.value_and_grad(card, on, model, tcfg)
+        lh, _, gh = TT.value_and_grad(host, batch, model, tcfg)
+        check(abs(float(lc) - float(lh)) <= 1e-5 * abs(float(lh)),
+              f"{arch}: loss card {float(lc)} CPU {float(lh)}")
+        top = {}
+        for n, g in gh.items():
+            top[reference_leaf(n)] = max(top.get(reference_leaf(n), 0.0), g.abs().max().item())
+        worst = 0.0
+        for n, g in gh.items():
+            diff = (gc[n].cpu() - g).abs().max().item()
+            tol = GRAD_ATOL + GRAD_RTOL * top[reference_leaf(n)]
+            check(diff <= tol, f"{arch}: gradient {n} card - CPU {diff:.3g} above {tol:.3g}")
+            worst = max(worst, diff / tol)
+        again = TT.value_and_grad(card, on, model, tcfg)[2]
+        differ = [n for n, g in gc.items() if not torch.equal(again[n], g)]
+        check(not differ, f"{arch}: gradients differ on a rerun on the card: {differ[:6]}")
+        T.set_remat_policy("off")
+        try:
+            plain = TT.value_and_grad(card, on, model, tcfg)[2]
+        finally:
+            T.set_remat_policy("batch_dots")
+        off_equal = all(torch.equal(plain[n], g) for n, g in gc.items())
+        state = TT.TrainState(card, opt.init(dict(card.named_parameters())), None)
+        state, m = TT.train_step(state, on, model, tcfg)
+        check(float(m["loss"]) == float(lc) and bool(torch.isfinite(m["grad_norm"])),
+              f"{arch}: the step's loss {float(m['loss'])} != {float(lc)}")
+        errs[cfg.name] = (f"loss {float(lc):.4f}, grads at {worst:.3f} of the tolerance, "
+                          f"remat off {'bitwise' if off_equal else 'within tolerance'}")
+        del card, state, gc, again, plain
+    torch.cuda.empty_cache()
+    print(f"[23a train families] {len(errs)} families at their reduced configs, one step "
+          f"on {TRAIN_B}x{TRAIN_S} tokens, card = CPU (loss within 1e-5, every gradient "
+          f"within {GRAD_ATOL} + {GRAD_RTOL}*max|g| of its leaf), gradients bitwise "
+          f"equal on a rerun on the card: " + "; ".join(f"{k}: {v}" for k, v in errs.items()))
+
+
+def forward_product_flops(cfg, bsz: int, seq: int) -> float:
+    """The FLOPs of one forward's products (2 a multiply-add): projections,
+    MLPs, attention's scores and weighted sums, the SSD's chunk products,
+    and the logits. A train step runs 3x these (the backward twice the
+    forward); a recompute under remat is not counted (the least work)."""
+    t, d = bsz * seq, cfg.d_model
+    flops = 2.0 * t * d * cfg.vocab_size  # logits
+    attn = (2.0 * t * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim_ if cfg.n_heads
+            else 0.0)
+    if cfg.n_heads:
+        attn += 2.0 * t * cfg.n_heads * cfg.head_dim_ * d  # wo
+        attn += 4.0 * bsz * cfg.n_heads * seq * seq * cfg.head_dim_  # scores, weighted sum
+    if cfg.family in ("dense", "vlm"):
+        return flops + cfg.n_layers * (attn + 2.0 * t * d * cfg.d_ff * 3)
+    if cfg.family == "ssm":
+        q = cfg.ssm_chunk
+        s_pad = -(-seq // q) * q
+        h, n, p, di = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim, cfg.d_inner
+        tp = bsz * s_pad
+        ssd = 2.0 * tp * q * n + 2.0 * tp * q * h * p + 2 * 2.0 * tp * h * n * p
+        proj = 2.0 * t * d * (2 * di + 2 * n + h) + 2.0 * t * di * d
+        return flops + cfg.n_layers * (ssd + proj)
+    raise ValueError(f"no FLOP count for family {cfg.family}")
+
+
+def train_phase(torch, arch: str, f32_rate: float, mem_bw: float, smi: str,
+                tag: str) -> dict:
+    """Phases 23b-c: ``python -m repro_torch.launch.train --arch <arch>
+    --batch 8 --seq 128 --steps 20 --device cuda`` (the published config in
+    float32, remat on under ``batch_dots``, TF32 off) in this process: the
+    median of the warm steps' CUDA-event times against the step's bound
+    (3x the forward's product FLOPs at the f32 peak, or params, grads and
+    both moments read and written once over the memory rate), tokens/s, the
+    peak, and a falling loss; then 3 steps at TRAIN_PEAK_SEQ with remat
+    ``off`` and ``batch_dots``, each one's peak and step time."""
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+
+    argv = ["--arch", arch, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(TRAIN_STEPS), "--device", "cuda"]
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train.run(argv)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+    cfg = out.model.cfg
+    n_params = sum(p.numel() for p in out.state.params.parameters())
+    check(len(out.losses) >= 2 and all(np.isfinite(out.losses)), f"{arch}: losses {out.losses}")
+    check(out.losses[-1] < out.losses[0], f"{arch}: the loss did not fall: {out.losses}")
+    logged = [round(x, 4) for x in out.losses]
+    warm = out.step_ms[2:]
+    step_ms = statistics.median(warm)
+    flops = 3 * forward_product_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    bytes_ = 4 * n_params * 8  # params, grads, mu, nu: each read and written once
+    bound_ms = max(flops / f32_rate, bytes_ / mem_bw) * 1e3
+    by = "operations" if flops / f32_rate >= bytes_ / mem_bw else "bytes"
+    del out
+    torch.cuda.empty_cache()
+
+    seq = TRAIN_PEAK_SEQ[arch]
+    peaks, losses = {}, {}
+    for policy in ("off", "batch_dots"):
+        T.set_remat_policy(policy)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            run = train.run(["--arch", arch, "--batch", str(TRAIN_BATCH), "--seq", str(seq),
+                             "--steps", "3", "--log-every", "1", "--device", "cuda"])
+        finally:
+            T.set_remat_policy("batch_dots")
+        peaks[policy] = (torch.cuda.max_memory_allocated() / 1e9 - held_gb,
+                         statistics.median(run.step_ms[1:]))
+        losses[policy] = run.losses
+        del run
+        torch.cuda.empty_cache()
+    check(np.allclose(losses["off"], losses["batch_dots"], rtol=1e-5, atol=0),
+          f"{arch}: remat changed the losses: {losses}")
+    same = "bitwise" if losses["off"] == losses["batch_dots"] else "within 1e-5"
+    print(f"[{tag} lm train] {cfg.name} at published widths and depth ({cfg.n_layers} layers, "
+          f"d={cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e6:.1f} M params, f32, TF32 "
+          f"off) through `python -m repro_torch.launch.train {' '.join(argv[:-2])}` on {smi}: "
+          f"{TRAIN_STEPS} steps in {wall:.2f} s (init included), losses logged {logged} | step {step_ms:.3f} ms (median of "
+          f"{len(warm)} warm steps; min {min(warm):.3f}, max {max(warm):.3f}), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.0f} tokens/s | bound {bound_ms:.3f} ms "
+          f"(by {by}: {flops / 1e12:.3f} TFLOP at {f32_rate / 1e12:.0f} TFLOP/s f32, "
+          f"{bytes_ / 1e9:.2f} GB at {mem_bw / 1e12:.2f} TB/s): {bound_ms / step_ms:.3f} of it | "
+          f"peak {peak_gb:.2f} GB above the {held_gb:.2f} GB earlier phases hold | at S={seq}, "
+          f"3 steps: remat off peak {peaks['off'][0]:.2f} GB, step {peaks['off'][1]:.3f} ms; "
+          f"batch_dots peak {peaks['batch_dots'][0]:.2f} GB, step {peaks['batch_dots'][1]:.3f} "
+          f"ms; losses {same}")
+    return {"step_ms": step_ms, "bound_ms": bound_ms}
+
+
+def crash_resume_phase(torch, root: str, smi: str) -> None:
+    """Phase 23d: qwen1.5-0.5b at published width, 6 steps straight against
+    3 steps, ``--fail-at-step 3`` and a resume, with the checkpoint under
+    build/train_ckpt (deleted afterwards): the final params bitwise equal,
+    the resumed steps' losses equal; the checkpoint's size and the time of
+    a synchronous save of the final state."""
+    import shutil
+
+    from repro_torch.launch import train
+    from repro_torch.training.checkpoint import CheckpointManager
+
+    ckpt_dir = os.path.join(root, "build", "train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    base = ["--arch", LM_TRAIN[0], "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", "6", "--log-every", "1", "--device", "cuda"]
+    try:
+        straight = train.run(base)
+        want = {n: p.detach().cpu() for n, p in straight.state.params.named_parameters()}
+        want_losses = straight.losses
+        del straight
+        torch.cuda.empty_cache()
+        try:
+            train.run(base + ["--ckpt-dir", ckpt_dir, "--ckpt-every", "2", "--fail-at-step", "3"])
+            fail("--fail-at-step 3 did not raise")
+        except RuntimeError as exc:
+            check("injected failure at step 3" in str(exc), f"unexpected failure: {exc}")
+        torch.cuda.empty_cache()
+        resumed = train.run(base + ["--ckpt-dir", ckpt_dir, "--ckpt-every", "100"])
+        check(resumed.start_step == 3, f"resumed from step {resumed.start_step}, not 3")
+        check(resumed.losses == want_losses[3:],
+              f"resumed losses {resumed.losses} != straight {want_losses[3:]}")
+        differ = [n for n, p in resumed.state.params.named_parameters()
+                  if not torch.equal(p.detach().cpu(), want[n])]
+        check(not differ, f"resumed params differ from the straight run's: {differ[:6]}")
+        size_gb = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in
+                      os.walk(os.path.join(ckpt_dir, "step-6")) for f in fs) / 1e9
+        sync = CheckpointManager(os.path.join(ckpt_dir, "sync"), async_write=False)
+        t0 = time.perf_counter()
+        sync.save(6, resumed.state)
+        save_s = time.perf_counter() - t0
+        del resumed
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[23d train crash and resume] {LM_TRAIN[0]} at published width, B={TRAIN_BATCH} "
+          f"S={TRAIN_SEQ} on {smi}: 6 steps straight = 3 steps, `--fail-at-step 3` and a "
+          f"resume from step 3: params bitwise equal, resumed losses equal "
+          f"{[round(x, 4) for x in want_losses[3:]]} | checkpoint {size_gb:.2f} GB "
+          f"(params and both moments, npz), a synchronous save {save_s:.2f} s (copy to the "
+          f"host, write, fsync, rename)")
+
+
+def train_profile_phase(torch, s23) -> None:
+    """Phase 23e, after every timed part of the smoke: one profiled
+    qwen1.5-0.5b train step at published width (B = 8, S = 128): the
+    kernels it launches, the card's busy time against the step's wall, so
+    the idle share, the kernels with the most device time, and the share of
+    the loss (CUDA events: its forward and backward on the step's logits,
+    and the gold-logit gather alone)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import resolve_config
+    from repro_torch.models import build_model
+    from repro_torch.training import data
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as TT
+
+    cfg = resolve_config(LM_TRAIN[0], reduced=False)[0]
+    model = build_model(cfg)
+    tcfg = TT.TrainConfig(adamw=opt.AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS))
+    state = TT.init_state(model, 0, tcfg, "cuda")
+    dcfg = data.DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    batches = [data.synthetic_batch(cfg, dcfg, i, "cuda") for i in range(3)]
+    for batch in batches[:2]:  # warm
+        state, _ = TT.train_step(state, batch, model, tcfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = TT.train_step(state, batches[2], model, tcfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    kernels = sum(ev.count for ev in evs)
+    busy = sum(ev.self_device_time_total for ev in evs) / 1e3
+    idle = (f"kernels busy {busy:.3f} ms of the step's {wall:.3f} ms wall: idle "
+            f"{1 - busy / wall:.1%}, {1 - busy / s23['step_ms']:.1%} of 23b's unprofiled "
+            f"median step" if busy else
+            "idle share not measured (the profiler saw no device events)")
+    top = sorted(evs, key=lambda ev: -ev.self_device_time_total)[:5]
+    del state
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size), device="cuda",
+                         generator=gen, requires_grad=True)
+    labels = batches[2]["labels"]
+
+    def loss_fwd_bwd():
+        torch.autograd.grad(TT.cross_entropy(logits, labels, tcfg.z_loss), logits)
+
+    def gather_fwd_bwd():
+        gold = torch.gather(logits, -1, labels[..., None])
+        torch.autograd.grad(gold.sum(), logits)
+
+    ce_ms = time_ms(torch, loss_fwd_bwd, 5)
+    gather_ms = time_ms(torch, gather_fwd_bwd, 5)
+    del logits
+    torch.cuda.empty_cache()
+    print(f"[23e train profile] {cfg.name}, one train step at B={TRAIN_BATCH} S={TRAIN_SEQ}: "
+          f"{kernels} kernels, {idle} ({s23['step_ms']:.3f} ms) | the loss (logsumexp, gold "
+          f"gather, z-loss; forward and backward on the (B, S, V) logits) {ce_ms:.3f} ms, "
+          f"{ce_ms / s23['step_ms']:.1%} of the step; the gather alone {gather_ms:.3f} ms "
+          f"(its backward: a zero fill and one scattered value a row) | most device time: "
+          + ", ".join(f"{ev.key[:40]} {ev.self_device_time_total / 1e3:.3f} ms x{ev.count}"
+                      for ev in top))
+
+
 def main() -> int:
     import torch
 
@@ -2056,6 +2352,11 @@ def main() -> int:
     s22 = lm_serve_phase(torch, LM_SERVE[0], mem_bw, "22b")
     lm_serve_phase(torch, LM_SERVE[1], mem_bw, "22c")
     torch.cuda.empty_cache()
+    # ---- 23. the train path, before the first profiler trace -----------------
+    train_families_phase(torch, dev)
+    s23 = train_phase(torch, LM_TRAIN[0], f32_rate, mem_bw, smi, "23b")
+    train_phase(torch, LM_TRAIN[1], f32_rate, mem_bw, smi, "23c")
+    crash_resume_phase(torch, root, smi)
 
     service_profile_phase(torch, s21)
     del s21["svc"]
@@ -2504,6 +2805,7 @@ def main() -> int:
     for name in results:
         results[name]["service_launches"] = s21["counts"][name]
     lm_profile_phase(torch, s22)
+    train_profile_phase(torch, s23)
 
     # ---- result lines ---------------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}))

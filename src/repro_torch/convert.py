@@ -1,8 +1,8 @@
 """Carry state across from the reference package as plain numpy arrays.
 
 The port never imports the JAX package; a caller that holds a reference
-graph, problem, set of QAOA angles or LM parameter tree passes their
-arrays here.
+graph, problem, set of QAOA angles, LM parameter tree or train state passes
+their arrays here.
 """
 
 from __future__ import annotations
@@ -13,7 +13,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import Graph, Problem
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, STACKED
+from repro_torch.training.optimizer import AdamWState
+from repro_torch.training.train_step import TrainState
 
 
 def problem_from_arrays(n: int, edges, weights, n_edges: int, linear=None,
@@ -41,10 +43,6 @@ def angles_from_arrays(gammas, betas, device="cpu"):
         return torch.from_numpy(a.reshape(-1, a.shape[-1])).to(device)
 
     return t(gammas), t(betas)
-
-
-# the reference's layer stacks: one leading axis of per-layer leaves
-STACKED = ("blocks", "enc_blocks")
 
 
 def flatten(tree, prefix: str = "") -> dict:
@@ -98,3 +96,24 @@ def model_params_from_arrays(cfg, tree, device="cpu"):
     (``wq`` (d, H, hd), ``wo`` (H, hd, d), ...)."""
     params = LM(cfg, device=device)
     return load_arrays(params, unstack_layers(tree))
+
+
+def train_state_from_arrays(cfg, tree, device="cpu") -> TrainState:
+    """The port's `TrainState` for ``cfg`` on ``device`` from the
+    reference's, as numpy arrays nested as its checkpoint names them
+    (``params``, ``opt/{step,mu,nu}``, ``ef`` where int8 compression keeps
+    residuals): layer stacks unstacked into the port's names, the moments
+    and residuals by the same names as the parameters, the step on the
+    host."""
+    params = model_params_from_arrays(cfg, tree["params"], device)
+
+    def tensors(sub):
+        return {name: torch.from_numpy(np.array(arr, dtype=np.float32)).to(device)
+                for name, arr in unstack_layers(sub).items()}
+
+    opt = tree["opt"]
+    step = torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32)
+    ef = tree.get("ef")
+    return TrainState(params=params,
+                      opt=AdamWState(step=step, mu=tensors(opt["mu"]), nu=tensors(opt["nu"])),
+                      ef=None if ef is None else tensors(ef))

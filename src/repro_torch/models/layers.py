@@ -86,11 +86,13 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
 def _rope_tables(head_dim: int, theta: float, device: torch.device):
     """(frequencies (hd/2,), signs [-1…, 1…] (hd,)) on ``device``, copied
     up once: a copy from pageable host memory a call would wait for the
-    card's stream on every decode step."""
-    freqs = torch.from_numpy(rope_frequencies(head_dim, theta)).to(device)
-    sign = torch.ones(head_dim)
-    sign[: head_dim // 2] = -1.0
-    return freqs, sign.to(device)
+    card's stream on every decode step. Made outside inference mode, so
+    tables first built by a generate can be saved for a later backward."""
+    with torch.inference_mode(False):
+        freqs = torch.from_numpy(rope_frequencies(head_dim, theta)).to(device)
+        sign = torch.ones(head_dim)
+        sign[: head_dim // 2] = -1.0
+        return freqs, sign.to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):

@@ -40,8 +40,8 @@ class Model:
             gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
         return T.init_params(gen, self.cfg)
 
-    def forward(self, params, batch):
-        return T.forward(params, batch, self.cfg)
+    def forward(self, params, batch, remat: bool = False):
+        return T.forward(params, batch, self.cfg, remat=remat)
 
     def prefill(self, params, batch, s_max: int):
         return D.prefill(params, batch, self.cfg, s_max)

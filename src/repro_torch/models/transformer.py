@@ -8,22 +8,93 @@ by a Python loop. The heterogeneity the reference scans as data (gemma3's
 local and global windows, Zamba2's periodic shared attention) becomes
 plain Python over the static ``cfg.layer_windows()`` and
 ``cfg.layer_kinds()``; Zamba2's shared block is one module applied at every
-``ssm_attn`` layer. Rematerialisation and the dry-run's knobs come with the
-training and sharding slices.
+``ssm_attn`` layer.
+
+Rematerialisation is here: ``forward(..., remat=True)`` wraps each layer's
+body in ``torch.utils.checkpoint`` under the policy ``set_remat_policy``
+picks, with the reference's four names. The dry-run's knobs
+(``set_layer_unroll``, ``set_seq_parallel``) come with the sharding slice.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
+
+
+# the reference's layer stacks: one leading axis of per-layer leaves, which
+# the port keeps as one tensor a layer under ``<stack>.<i>.``
+STACKED = ("blocks", "enc_blocks")
+
+
+def reference_leaf(name: str) -> str:
+    """The reference's leaf of a port parameter name: ``blocks.3.attn.wq``
+    is a slice of the stacked leaf ``blocks.attn.wq``; other names are
+    their own leaf."""
+    top, _, rest = name.partition(".")
+    if top in STACKED:
+        return f"{top}.{rest.partition('.')[2]}"
+    return name
+
+
+# ------------------------------------------------------------------ remat --
+_REMAT_POLICY = "batch_dots"  # batch_dots | dots | everything | off
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def set_remat_policy(name: str) -> None:
+    global _REMAT_POLICY
+    assert name in ("batch_dots", "dots", "everything", "off"), name
+    _REMAT_POLICY = name
+
+
+def _dot_batch(op, args) -> int:
+    """The batch size of a product: 1 for mm, the leading dim of bmm's
+    operands."""
+    return args[0].shape[0] if op is torch.ops.aten.bmm.default else 1
+
+
+def _save_dots(batched: bool, ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep a product's output (every product,
+    or with ``batched=False`` only those without a batch dimension, the
+    reference's ``dots_with_no_batch_dims_saveable``), recompute the rest.
+
+    ``torch.einsum`` lowers a product with no batch dimension
+    (``bsd,dhk->bshk``) to ``bmm`` with a batch of 1, so the kind is told
+    by the batch size, not by the op's name. A batched product whose batch
+    dims all have size 1 counts as unbatched (B = 1 with one KV group)."""
+    if op in _DOTS and (batched or _dot_batch(op, args) == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(body, remat: bool):
+    """``body`` under the current policy: ``everything`` recomputes the
+    whole layer in the backward pass, ``dots``/``batch_dots`` keep the
+    products' outputs (selective activation checkpointing), ``off`` and
+    ``remat=False`` (and a forward without autograd) run it as it is."""
+    if not remat or _REMAT_POLICY == "off" or not torch.is_grad_enabled():
+        return body
+    kw = {}
+    if _REMAT_POLICY != "everything":
+        policy = functools.partial(_save_dots, _REMAT_POLICY == "dots")
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             policy)
+    return lambda *args: checkpoint(body, *args, use_reentrant=False, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -169,12 +240,14 @@ def ffn(bp, xn, cfg: ModelConfig):
 
 
 def _attn_stack(params, x, cfg: ModelConfig, *, enc_out=None, positions=None,
-                collect_kv: bool = False):
+                collect_kv: bool = False, remat: bool = False):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = []
     for bp, window in zip(params.blocks, cfg.layer_windows()):
-        x, a, kv = attn_block(bp, x, cfg, window=window, positions=positions,
-                              enc_out=enc_out, return_kv=collect_kv)
+        body = functools.partial(attn_block, bp, cfg=cfg, window=window,
+                                 positions=positions, enc_out=enc_out,
+                                 return_kv=collect_kv)
+        x, a, kv = _maybe_remat(body, remat and not collect_kv)(x)
         if a is not None:
             aux = aux + a
         kvs.append(kv)
@@ -197,19 +270,30 @@ def shared_attn_block(shared, x, cfg: ModelConfig, positions=None):
     return x + y, kv
 
 
+def _ssm_layer(bp, x, *, cfg: ModelConfig, shared=None, positions=None):
+    """One Mamba2 layer, after Zamba2's shared block where ``shared`` is
+    given: (x, the shared block's (k, v) or None)."""
+    kv = None
+    if shared is not None:
+        x, kv = shared_attn_block(shared, x, cfg, positions)
+    y, _ = S.ssm_block(bp.ssm, L.rmsnorm(bp.ln1, x, cfg.norm_eps), cfg)
+    return x + y, kv
+
+
 def _ssm_stack(params, x, cfg: ModelConfig, *, positions=None,
-               collect_kv: bool = False):
+               collect_kv: bool = False, remat: bool = False):
     """Mamba2 / Zamba2 stack: at an ``ssm_attn`` layer the shared attention
     block runs before the SSM mixer. With ``collect_kv``, the (k, v) of
     each application of the shared block, in order."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = []
     for bp, kind in zip(params.blocks, cfg.layer_kinds()):
-        if kind == "ssm_attn":
-            x, kv = shared_attn_block(params.shared_attn, x, cfg, positions)
+        shared = params.shared_attn if kind == "ssm_attn" else None
+        body = functools.partial(_ssm_layer, bp, cfg=cfg, shared=shared,
+                                 positions=positions)
+        x, kv = _maybe_remat(body, remat and not collect_kv)(x)
+        if kv is not None:
             kvs.append(kv)
-        y, _ = S.ssm_block(bp.ssm, L.rmsnorm(bp.ln1, x, cfg.norm_eps), cfg)
-        x = x + y
     return StackOut(x, aux, kvs if collect_kv else None)
 
 
@@ -246,8 +330,10 @@ def logits_of(params, h, cfg: ModelConfig):
     return torch.matmul(h, params.unembed_table(cfg).to(h.dtype).t())
 
 
-def forward(params, batch, cfg: ModelConfig):
-    """Training forward: returns (logits, aux_loss).
+def forward(params, batch, cfg: ModelConfig, *, remat: bool = False):
+    """Training forward: returns (logits, aux_loss). With ``remat``, each
+    decoder layer is rematerialised under the policy of
+    `set_remat_policy` (the encoder is not, as in the reference).
 
     batch: {"tokens": (B,S)} plus family extras:
       vlm:   {"patches": (B,P,D)} — prepended to the token embeddings
@@ -255,9 +341,9 @@ def forward(params, batch, cfg: ModelConfig):
     """
     x, enc_out = embed_inputs(params, batch, cfg)
     if cfg.family in ("ssm", "hybrid"):
-        out = _ssm_stack(params, x, cfg)
+        out = _ssm_stack(params, x, cfg, remat=remat)
     else:
-        out = _attn_stack(params, x, cfg, enc_out=enc_out)
+        out = _attn_stack(params, x, cfg, enc_out=enc_out, remat=remat)
 
     h = L.rmsnorm(params.final_norm, out.x, cfg.norm_eps)
     if cfg.family == "vlm":  # only text positions produce logits

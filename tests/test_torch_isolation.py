@@ -130,3 +130,23 @@ def test_chip_smoke_fails_without_gpu_and_without_package(tmp_path):
     for proc in runs:
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("entry", ["train_cli", "init_state"])
+def test_train_entry_points_default_to_cuda(monkeypatch, entry):
+    """The training CLI without ``--device`` and ``init_state`` without a
+    device raise where CUDA is missing."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.training.train_step import TrainConfig, init_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    run = {
+        "train_cli": lambda: train.run(["--arch", "qwen1_5_0_5b", "--reduced",
+                                        "--steps", "1"]),
+        "init_state": lambda: init_state(build_model(configs.get_reduced("qwen1_5_0_5b")),
+                                         0, TrainConfig()),
+    }[entry]
+    with pytest.raises(RuntimeError, match="is_available"):
+        run()
