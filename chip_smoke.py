@@ -15,7 +15,9 @@ runs these phases, each printing one line, failing on the first fault:
    400 and 4,096 x 16,000 spins); the redesigned cut kernels bitwise on
    integer inputs, within their stated tolerances on real ones, and their
    table pass, fills and split planes bitwise against the mirrors in
-   ``kernels/ref.py``; ∂β within its stated tolerance, bitwise repeatable;
+   ``kernels/ref.py``; ∂β within its stated tolerance, in at most two
+   reads of the planes over n = 24 qubits (each read timed), bitwise
+   repeatable, a row's bits the same alone and in the batch, no spill;
 3. the autograd rules (kernel path, the ∂β kernel included) against
    plain-PyTorch autograd;
 4. the full-width solve: G(400, 0.1) Max-Cut at N = 24 qubits, with each
@@ -62,14 +64,17 @@ runs these phases, each printing one line, failing on the first fault:
     (candidates and cut equal to phase 15's), and with ``--merge striped``;
 21. the solve service (``repro_torch.service``) on the card: (a) the
     planner's prior, warm solves of G(1000, 0.02) and G(2000, 0.02)
-    written to build/service/calibration.json with the card's name and
-    power limit; (b) 48 requests of the 400-vertex class from 2 tenants at
-    N = 12, 128 slots a dispatch: kernels #1-#4, ∂β and ∂γ at those shapes
+    through the service's dispatch at seven knob tuples (T, p and N each
+    over its range), and the per-dispatch and per-subgraph terms fitted on
+    them, written to build/service/calibration.json with the card's name
+    and power limit; (b) 48 requests of the 400-vertex class from 2
+    tenants at N = 12, 128 slots a dispatch: kernels #1-#4, ∂β and ∂γ at those shapes
     against their plain versions, one terminal state a request, launches
     as predicted, every uncached cut and assignment equal to a solo
     `solve()`, cached replays equal to their entries, throughput, latency,
-    stage spans and the card's idle share; (c) a dispatch returns before
-    its batch has run, with no stream sync; (d) the same requests over
+    stage spans and the card's idle share; (c) a dispatch (one CUDA graph
+    a bucket) returns before its batch has run, with no stream sync, at
+    T = 1 and at T = 30 behind a 300 ms spin; (d) the same requests over
     mesh ``data=4`` equal to (b); (e) two streamed requests; (f) a
     wall-clock soak with deadlines at half (b)'s throughput;
 22. the LM serve path (``repro_torch.models``, ``repro_torch.serving``):
@@ -102,6 +107,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re as re_mod
 import statistics
 import subprocess
 import sys
@@ -124,7 +130,17 @@ V_DATA, P_DATA, M_DATA = 300, 0.1, 14
 # slots a dispatch
 SVC_LOAD, SVC_RANGE, SVC_P, SVC_REPEAT, SVC_TENANTS = 48, (100, 400), 0.1, 0.25, 2
 SVC_SLOTS, SVC_QUBITS, SVC_KNOBS = 128, 12, (12, 4, 30, 512)  # knobs (N, K, T, W)
+FULL_BEHIND_MS = 150.0  # 21c: the T = 30 dispatch behind a 300 ms spin returns sooner
 CAL_SIZES, CAL_P = (1000, 2000), 0.02  # 21a: benchmarks/large_scale.py --distributed
+# 21a's knobs: that bench's, then T, p and N each moved to both ends of
+# the service's range, and K and W to the planner grid's values (they set
+# the merge's two terms apart); dispatched SVC_SLOTS rows at a time, each
+# stage the median of CAL_REPEAT timed solves
+CAL_BASE = {"n_qubits": 10, "top_k": 1, "p_layers": 2, "opt_steps": 12, "beam_width": 64}
+CAL_VARIED = (("opt_steps", (4, 30)), ("p_layers", (1, 3)), ("n_qubits", (8, 12)),
+              ("top_k", (2, 4)), ("beam_width", (32, 128, 512)))
+CAL_SLOTS, CAL_REPEAT = SVC_SLOTS, 3
+CAL_DEADLINES = (0.05, 2.0)  # 21a's plans at n = 400, |E| = 8000
 SOAK_LOAD = 60  # 21f: arrivals of the wall-clock soak
 # the LM serve path (phase 22): 22a every family's reduced config, card
 # against CPU on 2 x 16 tokens (a prefill of 8, then 8 teacher-forced decode
@@ -174,6 +190,13 @@ KERNEL_META = {
                    "src/repro/kernels/ops.py:431"),
 }
 DENSE_CHECK_ROWS = 64  # rows also scored through the edge list
+
+
+def spill_bytes(line: str) -> int:
+    """Bytes of spill stores and loads on a ptxas ``-v`` line."""
+    w = line.replace(",", " ").split()
+    return sum(int(w[i - 1]) for i in range(1, len(w) - 1)
+               if w[i] == "bytes" and w[i + 1] == "spill" and w[i - 1].isdigit())
 
 
 def fail(msg: str) -> None:
@@ -1004,7 +1027,7 @@ def state_kernel_checks(torch, dev, edges, weights, n: int, seed: int) -> str:
     torch.cuda.empty_cache()
     return (f"n={n} on {b} rows: cutvals bitwise, fused (both directions) and strided "
             f"{', '.join(groups)} within {max(errs):.3g} (tol 1e-5), expectation "
-            f"{rel:.3g} rel, beta_grad in passes {ref.beta_grad_groups(0, n)} within "
+            f"{rel:.3g} rel, beta_grad in reads {ref.beta_grad_launches(0, n)} within "
             f"{float(err.max()):.3g} (tol {float(tol.min()):.3g}), phase_grad "
             f"{pg_rel:.3g} of sum|c t|, both repeatable")
 
@@ -1396,50 +1419,181 @@ class EventBackend:
     def describe(self):
         return self.inner.describe()
 
+    def prepare(self, buckets, rows: int) -> int:
+        return self.inner.prepare(buckets, rows)
+
     def device_s(self) -> float:
         """The dispatches' device time: first launch to last, summed."""
         return sum(s.elapsed_time(e) for s, e in self.events) / 1e3
 
 
-def calibration_phase(torch, root: str, smi: str) -> str:
-    """Phase 21a: the planner's prior from this card. Warm `solve()`s of
-    G(1000, 0.02) and G(2000, 0.02) at the knobs of ``benchmarks/
-    large_scale.py --distributed`` (N = 10, K = 1, T = 12, W = 64, p = 2)
-    give the ``single`` rows `CostModel.fit` reads. Written with the card's
-    name and power limit to build/service/calibration.json, whose copy
-    beside ``service/planner.py`` is `Planner()`'s default prior."""
-    from repro_torch.core import ParaQAOAConfig, solve
-    from repro_torch.core.graph import Graph
-    from repro_torch.service.planner import CostModel
+def nonneg_fit(cols, y):
+    """Least squares y ≈ cols @ c with c >= 0, for two columns: where the
+    free fit gives a coefficient below 0, it is 0 and the other is refit."""
+    a = np.asarray(cols, dtype=np.float64).T
+    y = np.asarray(y, dtype=np.float64)
+    c = np.linalg.lstsq(a, y, rcond=None)[0]
+    if (c >= 0).all():
+        return [float(v) for v in c]
+    best = None
+    for keep in range(a.shape[1]):
+        col = a[:, keep]
+        v = max(float(col @ y / (col @ col)), 0.0)
+        r = float(((y - v * col) ** 2).sum())
+        if best is None or r < best[0]:
+            best = (r, keep, v)
+    out = [0.0] * a.shape[1]
+    out[best[1]] = best[2]
+    return out
 
-    knobs = dict(n_qubits=10, top_k=1, p_layers=2, opt_steps=12, beam_width=64)
+
+def calibration_knobs() -> list:
+    """21a's knob tuples: the reference bench's (N = 10, K = 1, T = 12,
+    W = 64, p = 2), and each of T, p, N, K and W moved to each value of
+    CAL_VARIED with the others at the base."""
+    tuples = [dict(CAL_BASE)]
+    for field, values in CAL_VARIED:
+        tuples += [dict(CAL_BASE, **{field: v}) for v in values]
+    return tuples
+
+
+def calibration_row(torch, g, knobs: dict, backend) -> dict:
+    """One solve of ``g`` at ``knobs`` as the service runs it: the partition,
+    the subgraphs dispatched CAL_SLOTS rows at a time through the local
+    backend (one CUDA graph a bucket) and harvested, then the merge; each
+    stage timed on the host's clock, the card synchronised at its end."""
+    from repro_torch.core import ParaQAOAConfig
+    from repro_torch.core import qaoa as qaoa_mod
+    from repro_torch.core.paraqaoa import merge_candidates
+    from repro_torch.core.partition import partition_for_solver
+    from repro_torch.service import edge_capacity
+
     cfg = ParaQAOAConfig(**knobs)
+    qcfg = cfg.qaoa_config()
+    nq = cfg.n_qubits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    part = partition_for_solver(g, nq)
+    t1 = time.perf_counter()
+    results = []
+    for i in range(0, part.m, CAL_SLOTS):
+        e, w, m = qaoa_mod.pad_subgraph_arrays(part.subgraphs[i:i + CAL_SLOTS], nq,
+                                               e_pad=edge_capacity(nq), n_rows=CAL_SLOTS,
+                                               device="cuda")
+        results.append((backend.solve_batch(qcfg, e, w, m),
+                        min(CAL_SLOTS, part.m - i)))
+    bits = np.concatenate([r.bitstrings.cpu().numpy()[:rows] for r, rows in results])
+    t2 = time.perf_counter()
+    _, cut, _ = merge_candidates(part, bits, cfg, device="cuda")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return {"mode": "single", "n": g.n, "edges": g.n_edges, "m": part.m, "knobs": knobs,
+            "dispatches": len(results), "cut": cut, "partition_s": t1 - t0,
+            "solve_s": t2 - t1, "merge_s": t3 - t2, "runtime_s": t3 - t0}
+
+
+def calibration_plans(model) -> dict:
+    """The planner's plans at n = 400, |E| = 8000 on ``model``: for each of
+    CAL_DEADLINES, and for the tightest deadline any tuple of the grid is
+    predicted to meet (``"floor"``)."""
+    from repro_torch.service import SLA, Planner
+
+    planner = Planner(cost_model=model)
+    floor = min(model.predict(400, 8000, kn).total_s for kn in planner.grid)
+    return {d: planner.plan(400, 8000, SLA(deadline_s=d))
+            for d in (*CAL_DEADLINES, floor)} | {"floor": floor}
+
+
+def calibration_phase(torch, root: str, smi: str) -> str:
+    """Phase 21a: the planner's prior from this card. G(1000, 0.02) and
+    G(2000, 0.02) solved as the service solves them (`calibration_row`),
+    each at the twelve knob tuples of `calibration_knobs` (T in 4-30, p in
+    1-3, N in 8-12, K in 1-4, W in 32-512), once to warm (each bucket's
+    graph is captured there), then CAL_REPEAT times, each stage's median
+    kept: the ``single`` rows `CostModel.fit` reads, each with its knobs.
+    The fixed terms are fitted on the same rows (non-negative least
+    squares): ``c_dispatch`` from solve_s = c·M(T+1)p2^N +
+    c_dispatch·dispatches, ``c_merge_base`` from merge_s = c·WK|E| +
+    c_merge_base·M, with the slots a dispatch. Written with the card's name
+    and power limit to build/service/calibration.json, whose copy beside
+    ``service/planner.py`` is `Planner()`'s prior (`planner.load_prior`).
+    Checks that the prior prices the solve (c_solve > 0), that predicted
+    cost rises with T, p and N, and that the tightest deadline the grid can
+    meet at n = 400, |E| = 8000 gets a lower T or p than a 2 s one; prints
+    the plans, and whether the 0.05 s one is predicted to be met (the
+    host's partition and merge set the grid's floor there, 32-46 ms on
+    the hosts measured, and the top of the grid costs 2-3 ms more, so 0.05
+    s binds no knob or, on a slow host, is missed)."""
+    from repro_torch.core.graph import Graph
+    from repro_torch.service import KnobTuple, make_backend
+    from repro_torch.service.planner import load_prior
+
+    backend = make_backend(None, "cuda")
     rows = []
     for n in CAL_SIZES:
         g = Graph.erdos_renyi(n, CAL_P, seed=0)
-        solve(g, cfg, device="cuda")  # warm: the first solve of a shape
-        out = solve(g, cfg, device="cuda")
-        rows.append({"name": f"calibration/single_n{n}/p{CAL_P}", "mode": "single",
-                     "n": n, "edges": g.n_edges, "m": out.partition.m,
-                     "cut": out.cut_value, "runtime_s": out.report.runtime_s,
-                     **out.timings})
+        for knobs in calibration_knobs():
+            calibration_row(torch, g, knobs, backend)  # warm: captures the bucket
+            runs = [calibration_row(torch, g, knobs, backend) for _ in range(CAL_REPEAT)]
+            row = dict(runs[0], **{k: statistics.median(r[k] for r in runs)
+                                   for k in ("partition_s", "solve_s", "merge_s",
+                                             "runtime_s")})
+            kn = "_".join(f"{k[0]}{v}" for k, v in knobs.items())
+            rows.append({"name": f"calibration/single_n{n}/p{CAL_P}/{kn}", **row})
+    amp = [r["m"] * (r["knobs"]["opt_steps"] + 1) * r["knobs"]["p_layers"]
+           * 2 ** r["knobs"]["n_qubits"] for r in rows]
+    _, c_dispatch = nonneg_fit([amp, [r["dispatches"] for r in rows]],
+                               [r["solve_s"] for r in rows])
+    _, c_merge_base = nonneg_fit(
+        [[r["knobs"]["beam_width"] * r["knobs"]["top_k"] * r["edges"] for r in rows],
+         [r["m"] for r in rows]], [r["merge_s"] for r in rows])
+    fixed = {"c_dispatch": c_dispatch, "c_merge_base": c_merge_base,
+             "batch_slots": CAL_SLOTS}
     payload = {"suite": "service_calibration",
-               "source": "chip_smoke.py phase 21a: warm solve() on the card",
+               "source": "chip_smoke.py phase 21a: warm solves through the service's "
+                         "dispatch (one CUDA graph a bucket) on the card, each stage the "
+                         f"median of {CAL_REPEAT}",
                "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
                "torch": torch.__version__, "cuda": torch.version.cuda,
-               "knobs": knobs, "rows": rows}
+               "knobs": CAL_BASE, "fixed": fixed, "rows": rows}
     path = os.path.join(root, "build", "service", "calibration.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         json.dump(payload, f, indent=1)
-    model = CostModel.from_bench_file(path)
-    check(model.c_partition != CostModel().c_partition, f"{path} gave no fit: {model}")
-    print(f"[21a calibration] {smi} | " + " | ".join(
-        f"G({r['n']}, {CAL_P}): M={r['m']} cut {r['cut']:.0f}, partition "
-        f"{r['partition_s']:.4f} s, solve {r['solve_s']:.4f} s, merge {r['merge_s']:.4f} s"
-        for r in rows) + f" | fit: c_partition {model.c_partition:.4g}, c_solve "
-        f"{model.c_solve:.4g}, c_merge {model.c_merge:.4g} (c_dispatch "
-        f"{model.c_dispatch:.4g}, c_merge_base {model.c_merge_base:.4g} kept) | {path}")
+    model = load_prior(path)
+    check(model.c_solve > 0, f"{path}: the prior prices the solve at 0: {model}")
+    base = KnobTuple(n_qubits=10, top_k=2, opt_steps=12, beam_width=128, p_layers=2)
+    rises = {}
+    for field, values in CAL_VARIED[:3]:
+        a, b = (model.predict(400, 8000, base._replace(**{field: v})).solve_s
+                for v in (values[0], values[-1]))
+        check(b > a, f"predicted solve_s does not rise with {field}: {a} -> {b}")
+        rises[field] = f"{a * 1e3:.2f} -> {b * 1e3:.2f} ms"
+    plans = calibration_plans(model)
+    tight, loose, floor = (plans[d] for d in (*CAL_DEADLINES, plans["floor"]))
+
+    def lower(a, b):
+        return (a.knobs.opt_steps, a.knobs.p_layers) != (b.knobs.opt_steps, b.knobs.p_layers) \
+            and a.knobs.opt_steps <= b.knobs.opt_steps and a.knobs.p_layers <= b.knobs.p_layers
+
+    check(lower(floor, loose), f"the tightest deadline {plans['floor']:.4f} s plans "
+          f"{tuple(floor.knobs)}, not a lower T or p than {CAL_DEADLINES[1]} s's "
+          f"{tuple(loose.knobs)}")
+    print(f"[21a calibration] {smi} | {len(rows)} rows: G(n, {CAL_P}) n in {CAL_SIZES} x "
+          f"{len(calibration_knobs())} knob tuples, {CAL_SLOTS} slots a dispatch, median of "
+          f"{CAL_REPEAT} | "
+          + " | ".join(f"n={r['n']} {r['name'].rsplit('/', 1)[1]}: M={r['m']} "
+                       f"d={r['dispatches']} partition {r['partition_s']:.4f} solve "
+                       f"{r['solve_s']:.4f} merge {r['merge_s']:.4f} s" for r in rows)
+          + f" | fixed (fitted): c_dispatch {c_dispatch:.4g} s, c_merge_base "
+          f"{c_merge_base:.4g} s | fit: c_partition {model.c_partition:.4g}, c_solve "
+          f"{model.c_solve:.4g}, c_merge {model.c_merge:.4g} | predicted solve at n=400 "
+          f"|E|=8000: {rises} | plans (N, K, T, W, p) at n=400 |E|=8000: "
+          + ", ".join(f"{d:.4g} s -> {tuple(plans[d].knobs)} (predicted "
+                      f"{plans[d].predicted.total_s:.4f} s)"
+                      for d in (plans["floor"], *CAL_DEADLINES))
+          + f"; {CAL_DEADLINES[0]} s is predicted to be {'met' if tight.meets_deadline else 'missed'}"
+          f" and {'lowers' if lower(tight, loose) else 'keeps'} T and p | {path}")
     return path
 
 
@@ -1484,7 +1638,9 @@ def service_phase(torch, dev, ops) -> dict:
     from repro_torch.core.graph import as_problem, problem_value
     from repro_torch.core.partition import partition_for_solver
     from repro_torch.obs.trace import Tracer
-    from repro_torch.service import KnobTuple, edge_capacity, make_backend
+    from repro_torch.service import (KnobTuple, ServiceConfig, SolveService, edge_capacity,
+                                     make_backend)
+    from repro_torch.service import backend as backend_mod
     from repro_torch.service.canonical import canonical_key
     from repro_torch.service.workload import request_mix
 
@@ -1511,7 +1667,22 @@ def service_phase(torch, dev, ops) -> dict:
     del edges, weights, probs, folded, plain_all
     torch.cuda.empty_cache()
 
-    # a warm-up drain on another seed's requests, then the measured one
+    # the service's build, which captures every bucket of the planner's grid
+    # (from none: 21a's are dropped), then a warm-up drain on another seed's
+    # requests, then the measured one
+    backend_mod.clear_graphs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    built = SolveService(ServiceConfig(batch_slots=SVC_SLOTS, max_qubits=SVC_QUBITS,
+                                       device="cuda"))
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    n_graphs = backend_mod.graph_count()
+    # a graph a bucket but for top_k, which the graph leaves out
+    want = len({(q.n_qubits, q.opt_steps, q.p_layers, lin)
+                for q, _, lin in built._grid_buckets()})
+    check(n_graphs == want, f"the service's build captured {n_graphs} graphs of {want}")
+    del built
     warm = request_mix(4, SVC_RANGE, SVC_P, 0.0, seed=1)
     run_service(torch, warm, ["t0"] * len(warm))
     tracer = Tracer(record=True)
@@ -1521,6 +1692,8 @@ def service_phase(torch, dev, ops) -> dict:
     svc, rids, wall = run_service(torch, graphs, tenants, tracer=tracer, backend=backend)
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(backend_mod.graph_count() == n_graphs, f"the drains captured "
+          f"{backend_mod.graph_count() - n_graphs} graphs")
     st = svc.stats
     check(sorted(svc.results) == sorted(rids) and len(set(rids)) == SVC_LOAD
           and st.terminal == SVC_LOAD == st.completed,
@@ -1577,7 +1750,8 @@ def service_phase(torch, dev, ops) -> dict:
           f"cached replays equal their entries")
     return {"svc": svc, "rids": rids, "graphs": graphs, "tenants": tenants,
             "counts": counts, "throughput": SVC_LOAD / wall, "wall": wall, "subs": subs,
-            "cfg": cfg, "solve_spans": solve_spans, "device_s": device_s}
+            "cfg": cfg, "solve_spans": solve_spans, "device_s": device_s,
+            "prepare_s": prepare_s, "n_graphs": n_graphs}
 
 
 def service_dispatch(s21, cfg=None):
@@ -1602,10 +1776,11 @@ def dispatch_phase(torch, s21) -> None:
     T = 1 behind a 300 ms spin kernel under ``set_sync_debug_mode("error")``:
     it must return with the spin still running and an event recorded after
     its last launch not complete (the loop body is the same at any T, so
-    a host read anywhere on the path would show here). At T = 30 a
-    dispatch is more launches than the card's launch queue holds, so
-    behind a long stall it returns once the queue has room; that is
-    timed and printed. Then 21b's ``solve`` spans against its dispatches'
+    a host read anywhere on the path would show here). Then at T = 30
+    behind the spin: 2,724 kernels eagerly, more than the card's launch
+    queue holds, but one replay of the bucket's CUDA graph, so it must
+    return within FULL_BEHIND_MS, its event pending, with the same
+    candidates. Then 21b's ``solve`` spans against its dispatches'
     device time: at least half of it (a dispatch that waited for the card
     would leave the spans near 0)."""
     import dataclasses
@@ -1665,9 +1840,22 @@ def dispatch_phase(torch, s21) -> None:
     check(torch.equal(bits, want_one), "the dispatch behind the spin gave other candidates")
     torch.cuda.synchronize()
     spin(spin_ms)
-    t0 = time.perf_counter()
-    res = dispatch()
-    full_behind_s = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        res = dispatch()
+        full_behind_s = time.perf_counter() - t0
+        ev = torch.cuda.Event()
+        ev.record()
+        full_pending = not ev.query()
+    except RuntimeError as exc:
+        fail(f"the T={qcfg.opt_steps} dispatch synchronised with the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(full_pending and full_behind_s * 1e3 < FULL_BEHIND_MS,
+          f"behind a {spin_ms:.0f} ms spin the T={qcfg.opt_steps} dispatch took "
+          f"{full_behind_s * 1e3:.1f} ms (limit {FULL_BEHIND_MS:.0f}) and its event was "
+          f"{'pending' if full_pending else 'complete'} at return")
     check(torch.equal(res.bitstrings.cpu(), want), "T=30 behind the spin: other candidates")
     ratio = s21["solve_spans"] / s21["device_s"]
     check(ratio >= 0.5, f"solve spans {s21['solve_spans']:.3f} s < half the dispatches' "
@@ -1679,9 +1867,12 @@ def dispatch_phase(torch, s21) -> None:
           f"{wait_s * 1e3:.2f} ms | T=1 behind a {spin_ms:.0f} ms spin, sync debug mode "
           f"'error': returned in {behind_s * 1e3:.2f} ms with its event pending, harvest "
           f"waited {behind_wait_s * 1e3:.1f} ms, candidates equal | T={qcfg.opt_steps} "
-          f"behind the spin: returned in {full_behind_s * 1e3:.1f} ms (the launch queue "
-          f"full) | 21b: solve spans {s21['solve_spans']:.3f} s = {ratio:.2f} x the "
-          f"dispatches' device time {s21['device_s']:.3f} s (need >= 0.5)")
+          f"behind the spin (one CUDA graph): returned in {full_behind_s * 1e3:.1f} ms "
+          f"(limit {FULL_BEHIND_MS:.0f}) with its event pending, candidates equal | 21b: "
+          f"the service's build captured the planner grid's {s21['n_graphs']} buckets in "
+          f"{s21['prepare_s']:.3f} s, and no dispatch of its drains captured | solve spans "
+          f"{s21['solve_spans']:.3f} s = {ratio:.2f} x the dispatches' device time "
+          f"{s21['device_s']:.3f} s (need >= 0.5)")
 
 
 def mesh_service_phase(torch, s21) -> None:
@@ -1743,12 +1934,13 @@ def soak_phase(torch, cal_path: str, throughput: float) -> None:
     terminal state; attainment, shed, expired and downgrade rates."""
     from collections import Counter
 
-    from repro_torch.service import CostModel, Planner, ServiceConfig, SolveService
+    from repro_torch.service import Planner, ServiceConfig, SolveService
+    from repro_torch.service.planner import load_prior
     from repro_torch.service.workload import arrival_trace, run_soak_wall
 
     rate = throughput / 2
     trace = arrival_trace(SOAK_LOAD, rate, SVC_RANGE, SVC_P, seed=0)
-    planner = Planner(cost_model=CostModel.from_bench_file(cal_path),
+    planner = Planner(cost_model=load_prior(cal_path),
                       max_qubits=SVC_QUBITS, batch_slots=SVC_SLOTS)
     svc = SolveService(ServiceConfig(batch_slots=SVC_SLOTS, max_qubits=SVC_QUBITS,
                                      max_inflight=2, recalibrate=True, device="cuda"),
@@ -2580,12 +2772,13 @@ def main() -> int:
           f"max_abs_err {err:.3g} (tol {tol:.3g}) | kernel {r['ms']:.3f} ms, plain "
           f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
     # ∂β of the layer backward (all n qubits, as the solve calls it) and of
-    # two mixer groups, on seeded cotangents: within BETA_GRAD_RTOL · S of
-    # the plain version a row (S = Σ_x Σ_q |products|) and bitwise repeatable
+    # mixer groups, on seeded cotangents: within BETA_GRAD_RTOL · S of the
+    # plain version a row (S = Σ_x Σ_q |products|), bitwise repeatable, and
+    # each row's bits the same alone and in part of the batch as in all 18
     d_re = torch.as_tensor(rng.standard_normal((B_MAIN, dim), dtype=np.float32), device=dev)
     d_im = torch.as_tensor(rng.standard_normal((B_MAIN, dim), dtype=np.float32), device=dev)
     parts = []
-    for lo_bit, nbits in ((0, N_MAIN), (7, 7), (21, 3)):
+    for lo_bit, nbits in ((0, N_MAIN), (7, 7), (14, 7), (21, 3)):
         bargs = (d_re, d_im, re, im, lo_bit, nbits)
         got = betagrad.beta_grad(*bargs)
         again = betagrad.beta_grad(*bargs)
@@ -2597,8 +2790,14 @@ def main() -> int:
               f"errors {err.tolist()} above the tolerances {tol.tolist()}")
         check(torch.equal(got, again), f"beta_grad qubits [{lo_bit}, {lo_bit + nbits}) "
               "is not bitwise repeatable")
-        parts.append(f"qubits [{lo_bit}, {lo_bit + nbits}) in passes "
-                     f"{ref.beta_grad_groups(lo_bit, nbits)}: max_abs_err "
+        for rows in (slice(0, 1), slice(2, 18)):
+            alone = betagrad.beta_grad(d_re[rows], d_im[rows], re[rows], im[rows], lo_bit,
+                                       nbits)
+            check(torch.equal(alone, got[rows]), f"beta_grad qubits [{lo_bit}, "
+                  f"{lo_bit + nbits}): rows {rows} differ alone and in the batch")
+        parts.append(f"qubits [{lo_bit}, {lo_bit + nbits}) in reads "
+                     f"{[[tuple(p) for p in launch] for launch in ref.beta_grad_launches(lo_bit, nbits)]}"
+                     f" (g0, k, lanes): max_abs_err "
                      f"{float(err.max()):.3g} (tol {float(tol.min()):.3g}, |dbeta| up to "
                      f"{float(want.abs().max()):.3g})")
         if lo_bit == 0:
@@ -2611,15 +2810,60 @@ def main() -> int:
         else:
             r = results["beta_grad"]
             r["max_abs_err"] = max(r["max_abs_err"], float(err.max()))
-        del got, again, want, tol
+        del got, again, want, tol, alone
     r = results["beta_grad"]
-    spills = [ln.strip() for ln in _build.ptxas_log("betagrad").splitlines()
-              if "spill" in ln or "registers" in ln]
+    # each read of the planes alone, and the fused read's two groups apart
+    # (each then reads the planes from HBM itself)
+    reads = []
+    for launch in ref.beta_grad_launches(0, N_MAIN):
+        lo_bit, nbits = launch[0].g0, sum(p.k for p in launch)
+        t = time_ms(torch, lambda: betagrad.beta_grad(d_re, d_im, re, im, lo_bit, nbits), 10)
+        apart = [time_ms(torch, lambda: betagrad.beta_grad(d_re, d_im, re, im, p.g0, p.k), 10)
+                 for p in launch] if len(launch) > 1 else []
+        reads.append(f"qubits [{lo_bit}, {lo_bit + nbits}) {t:.3f} ms"
+                     + (f" (its groups apart: {' + '.join(f'{a:.3f}' for a in apart)} ms)"
+                        if apart else ""))
+    n_pass = len(ref.beta_grad_launches(0, N_MAIN))
+    check(n_pass <= 2, f"beta_grad reads the planes {n_pass} times over qubits [0, {N_MAIN})")
+    # the same planes as states of other widths (the same bytes, so the same
+    # bound a read): at n = 22 and 23 every read runs an instance of its own
+    # (its groups fill their tiles); qubits [0, 10) at n = 24 are one read
+    # of slabs of four, which only the generic instance takes
+    widths = []
+    for nw, lo_bit, nbits in ((22, 0, 22), (23, 0, 23), (N_MAIN, 0, 10)):
+        v = [t.view(-1, 2**nw) for t in (d_re, d_im, re, im)]
+        got = betagrad.beta_grad(*v, lo_bit, nbits)
+        want = ref.beta_grad(*v, lo_bit, nbits)
+        tol = betagrad.tolerance(*v, lo_bit, nbits)
+        err = (got - want).abs()
+        check(bool((err <= tol).all()), f"beta_grad at n = {nw} over qubits [{lo_bit}, "
+              f"{lo_bit + nbits}): errors above the tolerances")
+        check(torch.equal(got, betagrad.beta_grad(*v, lo_bit, nbits)),
+              f"beta_grad at n = {nw} over qubits [{lo_bit}, {lo_bit + nbits}) is not "
+              "bitwise repeatable")
+        t = time_ms(torch, lambda: betagrad.beta_grad(*v, lo_bit, nbits), 10)
+        reads_w = ref.beta_grad_launches(lo_bit, nbits)
+        widths.append(f"n = {nw} ({v[0].shape[0]} rows) qubits [{lo_bit}, {lo_bit + nbits}) "
+                      f"in reads {[[tuple(p) for p in launch] for launch in reads_w]}: "
+                      f"{t:.3f} ms, {len(reads_w) * r['bound_ms'] / t:.2f} of the "
+                      f"{len(reads_w)}-read floor, max_abs_err {float(err.max()):.3g} (tol "
+                      f"{float(tol.min()):.3g})")
+        del v, got, want, tol, err
+    ptxas = [ln.strip() for ln in _build.ptxas_log("betagrad").splitlines()
+             if "spill" in ln or "registers" in ln]
+    spilled = [ln for ln in ptxas if spill_bytes(ln)]
+    check(not spilled, f"betagrad.cu spills: {spilled}")
+    regs = [int(m) for ln in ptxas for m in re_mod.findall(r"Used (\d+) registers", ln)]
+    frames = {int(m) for ln in ptxas for m in re_mod.findall(r"(\d+) bytes stack frame", ln)}
     print(f"[2 kernel beta_grad] (B, 2^n)=({B_MAIN}, {dim}) | " + " | ".join(parts)
-          + f" | all n qubits: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-          f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}: one read of the four planes; "
-          f"{len(ref.beta_grad_groups(0, N_MAIN))} passes read them that many times), "
-          f"bitwise repeatable | ptxas: {'; '.join(spills) or 'no lines'}")
+          + f" | all n qubits in {n_pass} reads of the planes: kernel {r['ms']:.3f} ms, plain "
+          f"{r['plain_ms']:.3f} ms, one-read bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
+          f"{n_pass}-read floor {n_pass * r['bound_ms']:.3f} ms ({r['bound_ms'] / r['ms']:.2f} "
+          f"of the bound, {n_pass * r['bound_ms'] / r['ms']:.2f} of the floor), bitwise "
+          f"repeatable, rows [0, 1) and [2, 18) alone bitwise equal to the batch's | reads: "
+          + "; ".join(reads) + " | other widths: " + "; ".join(widths) + f" | ptxas (no "
+          f"spill): {len(regs)} functions, {min(regs)}-{max(regs)} registers, stack frames "
+          f"{sorted(frames)} bytes")
     del d_re, d_im, bargs
     del re, im, cutv, r3, i3, args  # views keep the planes alive too
     torch.cuda.empty_cache()

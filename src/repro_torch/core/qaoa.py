@@ -130,14 +130,25 @@ def solve_subgraph_batch(edges, weights, real_mask, cfg: QAOAConfig,
     launches are queued (or, behind a stall longer than the card's launch
     queue, once the queue has room); reading the result waits for them.
     """
+    gammas, betas, re, im, exp = solve_batch_on_device(edges, weights, cfg, linear)
+    with torch.no_grad():
+        bits, probs = topk_marginal(re, im, cfg.n_qubits, real_mask, cfg.top_k)
+    return QAOAResult(bits, probs, exp, gammas, betas)
+
+
+def solve_batch_on_device(edges, weights, cfg: QAOAConfig, linear=None):
+    """The part of `solve_subgraph_batch` that needs nothing from the host:
+    the cost diagonal, the Adam ascent, the final evolution and ⟨cut⟩.
+    Returns (gammas, betas, re, im, expectation). Every shape in it is
+    fixed by the inputs' shapes and ``cfg``, so on the card it can be
+    captured as one CUDA graph (`service.backend.LocalBackend`)."""
     n = cfg.n_qubits
     cutv = ops.cutvals(n, edges, weights, linear)
     gammas, betas = optimize_params(cutv, n, cfg)
     with torch.no_grad():
         re, im = qaoa_statevector(cutv, n, gammas, betas, group=cfg.mixer_group)
         exp = ops.expectation(re, im, cutv)
-        bits, probs = topk_marginal(re, im, n, real_mask, cfg.top_k)
-    return QAOAResult(bits, probs, exp, gammas, betas)
+    return gammas, betas, re, im, exp
 
 
 def to_device(a: np.ndarray, device) -> torch.Tensor:

@@ -9,8 +9,8 @@ unchanged one is loaded as built. Nothing here runs at import time.
 
 A source may export more than one entry point (``cutvals.cu`` has the
 table pass, the full-range fill and the indexed form; ``cutbatch.cu`` the
-split pass and the product; ``betagrad.cu`` the group passes and the
-final sum). Each wrapper bumps its op's count in
+split pass and the product; ``betagrad.cu`` the reads of one or two groups
+and the final sum). Each wrapper bumps its op's count in
 `launches` once per call that launches its kernels.
 
 Each source built or loaded is a ``build`` event in the build ledger
@@ -23,6 +23,7 @@ the library.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -48,8 +49,9 @@ I32 = ctypes.c_int
 # pointers and the stream as void*, sizes as int64/int; each returns
 # cudaGetLastError() after its launch
 SIGNATURES = {
-    "beta_grad_group": ("betagrad", "pq_beta_grad_group",
-                        [P, P, P, P, P, I64, I64, I32, I64, I64, I64, I64, P]),
+    "beta_grad_pass": ("betagrad", "pq_beta_grad_pass",
+                       [P, P, P, P, P, I64, I32, I64, I32, I32, I32, I64, I64, I64,
+                        I32, I32, I64, I64, I64, P]),
     "beta_grad_final": ("betagrad", "pq_beta_grad_final", [P, P, I64, I64, P]),
     "cut_batch_split": ("cutbatch", "pq_cut_batch_split",
                         [P, P, P, I64, I64, I64, P]),
@@ -85,6 +87,29 @@ def count_launch(name: str) -> None:
 
 def reset_launches() -> None:
     launches.clear()
+
+
+def add_launches(counts) -> None:
+    """Count launches made outside a wrapper's call (a CUDA graph's replay
+    of the launches `set_aside_launches` took out of its capture)."""
+    launches.update(counts)
+
+
+@contextlib.contextmanager
+def set_aside_launches():
+    """Yields a Counter that, when the block ends, holds the launches
+    counted inside it; those are taken back out of `launches` (a capture
+    into a CUDA graph launches nothing)."""
+    before = collections.Counter(launches)
+    taken = collections.Counter()
+    try:
+        yield taken
+    finally:
+        taken.update(launches)
+        taken.subtract(before)
+        taken += collections.Counter()  # keep what was counted inside
+        launches.clear()
+        launches.update(before)
 
 
 def _nvcc() -> str:

@@ -8,13 +8,17 @@ from the cotangents (d_ore, d_oim) of a mixer's output (ore, oim), four
 (B, 2^n) f32 planes. The JAX package computes it as plain ``jnp`` inside
 the ``custom_vjp`` of ``apply_layer`` and ``apply_mixer_bits``
 (``repro/kernels/ops.py:291-321``, ``:417-424``), which XLA fuses; here it
-is ``csrc/betagrad.cu``: one pass per group of `ref.beta_grad_groups`
-(3 at n = 24), each block summing every in-group pair product of its
-tile into one f64 partial, then a fixed-order sum of each row's partials
-(no atomics, so the result is bitwise repeatable). It writes no
+is ``csrc/betagrad.cu``: one launch per read of the planes in
+`ref.beta_grad_launches` (2 at n = 24: qubits 0-11 on contiguous tiles,
+then 12-17 and 18-23 on runs of 64 lanes, fused so that the two groups'
+tiles of each region share it through L2), each tile summing every
+in-group pair product into one f64 partial, then a fixed-order sum of
+each row's partials (no atomics, and a partial's place set by its tile
+alone, so the result is bitwise repeatable and the same for a row alone
+and in a batch). It writes no
 neighbour-sum plane. The plain version is `ref.beta_grad` (neighbour-sum
 planes and ``torch.sum``); `ref.beta_grad_split` mirrors the kernel's
-decomposition on the CPU. No knob: the tile is the shared memory a block
+decomposition on the CPU. No knob: the tile is the shared memory a CTA
 stages.
 
 Tolerance: ``BETA_GRAD_RTOL · S`` a row against the plain version, with
@@ -57,19 +61,23 @@ def beta_grad(d_ore: torch.Tensor, d_oim: torch.Tensor, ore: torch.Tensor,
                          f"width {dim}")
     for t, name in ((d_ore, "d_ore"), (d_oim, "d_oim"), (ore, "ore"), (oim, "oim")):
         _build.require(t, name, torch.float32, (b, dim), dev)
-    groups = ref.beta_grad_groups(lo_bit, nbits)
-    parts = sum(dim // (2**k * y_tile) for _, k, y_tile in groups)
+    launches = [[(p, *ref.beta_pass_tiles(n, p)) for p in launch]
+                for launch in ref.beta_grad_launches(lo_bit, nbits)]
+    parts = sum(row_parts for launch in launches for _, _, row_parts in launch)
     partial = torch.empty((b, parts), dtype=torch.float64, device=dev)
     out = torch.empty((b,), dtype=torch.float32, device=dev)
     st = _build.stream(dev)
     part0 = 0
-    for g0, k, y_tile in groups:
-        x_dim = 2 ** (n - g0 - k)
-        rc = _build.entry("beta_grad_group")(
+    for launch in launches:
+        args = []
+        for p, slabs, row_parts in launch:
+            args += [p.g0, p.k, p.lanes, slabs, part0]
+            part0 += row_parts
+        args += [0] * (10 - len(args))  # no second group
+        rc = _build.entry("beta_grad_pass")(
             d_ore.data_ptr(), d_oim.data_ptr(), ore.data_ptr(), oim.data_ptr(),
-            partial.data_ptr(), b, x_dim, k, 2**g0, y_tile, parts, part0, st)
-        _build.check(rc, "beta_grad_group")
-        part0 += x_dim * (2**g0 // y_tile)
+            partial.data_ptr(), b, n, parts, len(launch), *args, st)
+        _build.check(rc, "beta_grad_pass")
     rc = _build.entry("beta_grad_final")(partial.data_ptr(), out.data_ptr(), b, parts, st)
     _build.check(rc, "beta_grad_final")
     _build.count_launch("beta_grad")

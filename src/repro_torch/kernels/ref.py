@@ -12,6 +12,8 @@ Bit convention: basis index ``b`` gives qubit ``q`` the bit ``(b >> q) & 1``.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 # Linear (per-vertex) terms fold into the XOR edge form through a virtual
@@ -20,8 +22,9 @@ import torch
 # vertex makes the unchanged XOR kernel score quadratic + linear terms.
 VIRTUAL_BIT = 30
 CUTVALS_LO_BITS = 12  # the table design's split: lo = the low min(n, 12) bits
-BETA_TILE = 4096  # ∂β kernel: amplitudes a block stages of each plane
-BETA_LANES = 32  # ∂β kernel: least Y-tile where Y allows (coalesced rows)
+BETA_TILE = 4096  # ∂β kernel: amplitudes a tile stages of each plane
+BETA_LANES = 16  # ∂β kernel: least lanes of Y a tile takes where Y allows (64 B)
+BETA_MAX_K = 12  # ∂β kernel: qubits a group
 BETA_SLOTS = 16  # ∂β kernel: leaves of an amplitude's pairwise tree
 
 
@@ -290,34 +293,78 @@ def beta_grad(d_ore, d_oim, ore, oim, lo_bit: int, nbits: int):
     return a - torch.sum(d_oim * fr, dim=-1)
 
 
-def beta_grad_groups(lo_bit: int, nbits: int):
-    """The ∂β kernel's passes over qubits [lo_bit, lo_bit + nbits): a list
-    of (g0, k, y_tile), one per group of qubits [g0, g0 + k) on the
-    (B, X, 2^k, 2^g0) view, its blocks 2^k × y_tile amplitudes. Each group
-    takes as many qubits as a BETA_TILE tile holds beside at least
-    BETA_LANES lanes (all of Y where Y is smaller), then widens its lanes
-    to fill the tile: qubits 0-11, 12-18, 19-23 at n = 24."""
-    groups, g0, end = [], lo_bit, lo_bit + nbits
+class BetaPass(NamedTuple):
+    """One group of the ∂β kernel: qubits [g0, g0 + k) on the (B, X, 2^k,
+    2^g0) view, tiles of 2^k × ``lanes`` amplitudes."""
+
+    g0: int
+    k: int
+    lanes: int
+
+
+def _beta_lanes(g0: int, k: int) -> int:
+    """Lanes of Y = 2^g0 a tile of k qubits takes: all of Y where 2^k·Y
+    fits BETA_TILE, else as many as fit."""
+    return 2**g0 if 2**k * 2**g0 <= BETA_TILE else BETA_TILE >> k
+
+
+def beta_grad_launches(lo_bit: int, nbits: int) -> list:
+    """The ∂β kernel's reads of the planes over qubits [lo_bit, lo_bit +
+    nbits): a list of launches, each a tuple of one `BetaPass` or two that
+    share each region of the planes through L2 (one read of HBM for both).
+
+    A group takes as many qubits (up to BETA_MAX_K) as fit one tile beside
+    at least BETA_LANES lanes (all of Y where Y is smaller). Where the rest
+    of the range does not fit one group but an even count of qubits, it is
+    cut into two equal halves on the same lanes (at least BETA_LANES of
+    them, at most Y) fused in one launch, if they fit, so both fill their
+    tiles alike; else the most that fit go first. At n = 24: qubits 0-11
+    on contiguous tiles, then 12-17 and 18-23 on runs of 64 lanes; at n =
+    23: 0-11, then 12-19 on runs of 16 lanes, then 20-22."""
+    launches, g0, end = [], lo_bit, lo_bit + nbits
     while g0 < end:
-        lanes = min(2**g0, BETA_LANES)
-        k = min(end - g0, (BETA_TILE // lanes).bit_length() - 1)
-        groups.append((g0, k, min(2**g0, BETA_TILE >> k)))
-        g0 += k
-    return groups
+        y, rest = 2**g0, end - g0
+        kmax = min(BETA_MAX_K, (BETA_TILE // min(y, BETA_LANES)).bit_length() - 1)
+        if rest <= kmax:
+            launches.append((BetaPass(g0, rest, _beta_lanes(g0, rest)),))
+            break
+        k1 = rest // 2
+        lanes = BETA_TILE >> k1
+        if rest % 2 == 0 and k1 <= BETA_MAX_K and BETA_LANES <= lanes <= y:
+            launches.append((BetaPass(g0, k1, lanes), BetaPass(g0 + k1, rest - k1, lanes)))
+            break
+        launches.append((BetaPass(g0, kmax, _beta_lanes(g0, kmax)),))
+        g0 += kmax
+    return launches
+
+
+def beta_grad_groups(lo_bit: int, nbits: int) -> list:
+    """Every `BetaPass` of `beta_grad_launches`, in order."""
+    return [p for launch in beta_grad_launches(lo_bit, nbits) for p in launch]
+
+
+def beta_pass_tiles(n: int, p: BetaPass):
+    """(slabs, partials a row) of group ``p`` on an n-qubit state: a tile
+    that takes all of Y also takes consecutive x up to BETA_TILE
+    amplitudes; each tile writes one partial."""
+    x = 2 ** (n - p.g0 - p.k)
+    slabs = min(x, BETA_TILE // (2**p.k * p.lanes)) if p.lanes == 2**p.g0 else 1
+    return slabs, (x // slabs) * (2**p.g0 // p.lanes)
 
 
 def beta_grad_split(d_ore, d_oim, ore, oim, lo_bit: int, nbits: int):
     """`beta_grad` by the ∂β kernel's decomposition: per group of
-    `beta_grad_groups`, each amplitude's k products d_ore·oim' − d_oim·ore'
-    in f32 (partner x ⊕ 2^q), summed as the kernel's pairwise tree of
-    BETA_SLOTS leaves (zeros past k); those values summed in f64 per row,
-    over every group, and rounded once to f32. The f64 order is torch's,
-    not the kernel's block order, so the two agree to the f64 rounding of
-    the sum (almost always the same f32), not bit for bit."""
+    `beta_grad_groups`, each amplitude's term of group qubit q,
+    d_ore·oim' − d_oim·ore' in f32 (partner x ⊕ 2^(g0+q)), at leaf
+    log2(lanes) + q of the kernel's pairwise tree of BETA_SLOTS leaves
+    (zeros at the others); those values summed in f64 per row, over every
+    group, and rounded once to f32. The f64 order is torch's, not the
+    kernel's, so the two agree to the f64 rounding of the sum (almost
+    always the same f32), not bit for bit."""
     b, dim = ore.shape
     n = dim.bit_length() - 1
     total = torch.zeros(b, dtype=torch.float64, device=ore.device)
-    for g0, k, _ in beta_grad_groups(lo_bit, nbits):
+    for g0, k, lanes in beta_grad_groups(lo_bit, nbits):
         shape = (b, 2 ** (n - g0 - k), 2**k, 2**g0)
         dr, di, o_re, o_im = (t.reshape(shape) for t in (d_ore, d_oim, ore, oim))
 
@@ -325,8 +372,10 @@ def beta_grad_split(d_ore, d_oim, ore, oim, lo_bit: int, nbits: int):
             return t.reshape(b, shape[1], 2 ** (k - q - 1), 2, 2**q, shape[3]).flip(3) \
                 .reshape(shape)
 
-        slots = [dr * flip(o_im, q) - di * flip(o_re, q) for q in range(k)]
-        slots += [torch.zeros_like(dr)] * (BETA_SLOTS - k)
+        leaf0 = lanes.bit_length() - 1
+        slots = [torch.zeros_like(dr)] * BETA_SLOTS
+        for q in range(k):
+            slots[leaf0 + q] = dr * flip(o_im, q) - di * flip(o_re, q)
         while len(slots) > 1:
             slots = [slots[i] + slots[i + 1] for i in range(0, len(slots), 2)]
         total += slots[0].to(torch.float64).sum(dim=(1, 2, 3))

@@ -25,6 +25,7 @@ process-global, as the loaded libraries it mirrors are.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 # op events dedup per (op, impl) with counts, but build events are kept
@@ -73,6 +74,26 @@ class CompileLedger:
     def note_op(self, op: str, impl: str) -> None:
         k = (op, impl)
         self.op_traces[k] = self.op_traces.get(k, 0) + 1
+
+    def add_ops(self, ops: dict) -> None:
+        """Count op dispatches made outside a wrapper's call (a CUDA graph's
+        replay of what `set_aside_ops` took out of its capture)."""
+        for k, n in ops.items():
+            self.op_traces[k] = self.op_traces.get(k, 0) + n
+
+    @contextlib.contextmanager
+    def set_aside_ops(self):
+        """Yields a dict that, when the block ends, holds the op dispatches
+        noted inside it; those are taken back out of `op_traces`."""
+        before = dict(self.op_traces)
+        taken: dict[tuple[str, str], int] = {}
+        try:
+            yield taken
+        finally:
+            taken.update({k: n - before.get(k, 0) for k, n in self.op_traces.items()
+                          if n != before.get(k, 0)})
+            self.op_traces.clear()
+            self.op_traces.update(before)
 
     # --------------------------------------------------------------- reading --
     def count(self, kind: str) -> int:

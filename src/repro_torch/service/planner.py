@@ -15,14 +15,17 @@ Quality is a monotone proxy score over the knobs (the paper's Figs. 9-10
 trends: cut quality rises with K, beam/L, N, and optimizer steps), shared
 with the result cache's equal-or-better-quality gate.
 
-The prior is the card's own: ``calibration.json`` beside this module,
-written by ``chip_smoke.py`` (phase 21a) from warm solves on the GPU, in
-the reference's ``BENCH_distributed.json`` schema (``mode: "single"``
-rows), with the card's name and power limit. Without the file the
-defaults of `CostModel()` apply, as in the reference. The scheduler
-streams served-request stage timings back through `observe_partition` /
-`observe_solve` / `observe_merge`, each an exponentially weighted blend of
-the implied per-work-unit coefficient into the live `CostModel`. Selection
+The prior is the card's own (`load_prior`): ``calibration.json`` beside
+this module, written by ``chip_smoke.py`` (phase 21a) from warm solves on
+the GPU through the service's dispatch, in the reference's
+``BENCH_distributed.json`` schema (``mode: "single"`` rows, each with the
+knobs it ran at, over several T, p and N), with the card's name and power
+limit and a ``fixed`` block of the per-dispatch and per-subgraph terms
+fitted there. Without the file the defaults of `CostModel()` apply, as in
+the reference. The scheduler streams served-request stage timings back
+through `observe_partition` / `observe_solve` / `observe_merge`, each an
+exponentially weighted blend of the implied per-work-unit coefficient into
+the live `CostModel`. Selection
 monotonicity is structural — it holds for any non-negative coefficient
 values, so it survives every refit — and a planner that never observes
 keeps its fitted model bit for bit.
@@ -193,25 +196,28 @@ class CostModel:
         recorded); `knobs` are the settings the suite ran with and
         `edge_prob` recovers |E| for rows that predate an explicit edge
         count. Coefficients are the median observed time-per-work-unit, so
-        one outlier row cannot skew the model.
+        one outlier row cannot skew the model. A row may carry its own
+        ``knobs`` (a `KnobTuple`'s fields), which take the place of
+        ``knobs`` for that row; the reference's rows carry none.
         """
         base = cls(**overrides)
         c_part, c_solve, c_merge = [], [], []
         for row in rows:
             if "partition_s" not in row or "n" not in row:
                 continue
+            kn = KnobTuple(**row["knobs"]) if row.get("knobs") else knobs
             n = int(row["n"])
             e = int(row.get("edges") or edge_prob * n * (n - 1) / 2)
-            m = int(row.get("m") or _subgraph_count(n, knobs.n_qubits))
+            m = int(row.get("m") or _subgraph_count(n, kn.n_qubits))
             c_part.append(row["partition_s"] / max(e + n, 1))
-            amp = m * (knobs.opt_steps + 1) * knobs.p_layers * 2**knobs.n_qubits
+            amp = m * (kn.opt_steps + 1) * kn.p_layers * 2**kn.n_qubits
             c_solve.append(
                 max(row["solve_s"] - base.c_dispatch * math.ceil(m / base.batch_slots), 0.0)
                 / max(amp, 1)
             )
             c_merge.append(
                 max(row["merge_s"] - base.c_merge_base * m, 0.0)
-                / max(knobs.beam_width * knobs.top_k * e, 1)
+                / max(kn.beam_width * kn.top_k * e, 1)
             )
         if not c_part:
             return base
@@ -247,6 +253,22 @@ class CostModel:
 # the card's own stage timings (chip_smoke.py phase 21a), shipped with
 # the package; missing → `CostModel()`'s defaults
 DEFAULT_BENCH_PATH = os.path.join(os.path.dirname(__file__), "calibration.json")
+
+
+def load_prior(path: str = DEFAULT_BENCH_PATH) -> CostModel:
+    """`Planner()`'s prior: `CostModel.from_bench_file` on ``path``, with
+    the file's ``fixed`` block (``c_dispatch`` and ``c_merge_base`` fitted
+    on the card by ``chip_smoke.py`` phase 21a, and the ``batch_slots`` its
+    rows were dispatched with) as its overrides in place of the
+    reference's defaults. A file without the block fits as the reference
+    does."""
+    try:
+        with open(path) as f:
+            fixed = json.load(f).get("fixed") or {}
+    except (OSError, ValueError):
+        fixed = {}
+    return CostModel.from_bench_file(path, **fixed)
+
 
 # the candidate grid: small enough to scan per request, wide enough to
 # span ~3 orders of magnitude in predicted cost
@@ -298,9 +320,7 @@ class Planner:
         batch_slots: int | None = None,
         recalibrate_alpha: float = 0.25,
     ):
-        self.cost_model = cost_model or CostModel.from_bench_file(
-            DEFAULT_BENCH_PATH
-        )
+        self.cost_model = cost_model or load_prior()
         if batch_slots is not None:
             # predict dispatch counts for the batch size the scheduler
             # actually runs, not the model's default

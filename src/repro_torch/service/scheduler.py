@@ -371,6 +371,11 @@ class SolveService:
         )
         self.cache = cache or ResultCache(config.cache_capacity)
         self.backend = backend or make_backend(config.mesh, self.device)
+        # a backend that graphs its buckets captures every one the grid can
+        # reach now: a capture synchronises the card, so no dispatch makes one
+        prepare = getattr(self.backend, "prepare", None)
+        if prepare is not None:
+            prepare(self._grid_buckets(), config.batch_slots)
         self.stats = ServiceStats()
         self.results: "OrderedDict[int, RequestResult]" = OrderedDict()
         self._next_id = 0
@@ -390,6 +395,16 @@ class SolveService:
         # coalesce onto it and are served from cache when it completes
         self._inflight_forms: dict[str, tuple[int, float]] = {}
         self._followers: dict[str, list] = {}
+
+    def _grid_buckets(self) -> list:
+        """(`QAOAConfig`, padded edges a row, linear terms or not) of every
+        bucket a plan of the planner's grid can fill, in the grid's order."""
+        cfgs = dict.fromkeys(
+            para_mod.ParaQAOAConfig(n_qubits=kn.n_qubits, top_k=kn.top_k,
+                                    p_layers=kn.p_layers, opt_steps=kn.opt_steps,
+                                    beam_width=kn.beam_width).qaoa_config()
+            for kn in self.planner.grid)
+        return [(q, edge_capacity(q.n_qubits), lin) for q in cfgs for lin in (False, True)]
 
     # ------------------------------------------------------------- admit --
     def submit(

@@ -324,7 +324,9 @@ def test_tile_candidates_give_the_same_bits(cuda_device):
 
 
 @pytest.mark.parametrize("n,lo,nbits", [(4, 0, 4), (13, 0, 13), (16, 0, 16), (14, 2, 7),
-                                        (15, 5, 9), (16, 13, 3), (17, 9, 8)])
+                                        (15, 5, 9), (16, 13, 3), (17, 9, 8), (18, 0, 18),
+                                        (19, 5, 14), (21, 6, 12), (2, 0, 2), (1, 0, 1),
+                                        (22, 0, 22), (23, 0, 23)])
 def test_beta_grad_kernel_matches_plain_and_repeats_bitwise(cuda_device, n, lo, nbits):
     """Within BETA_GRAD_RTOL · S of the plain version a row, at ragged
     lo_bit and nbits (groups of every lane width), and the same bits on a
@@ -341,6 +343,91 @@ def test_beta_grad_kernel_matches_plain_and_repeats_bitwise(cuda_device, n, lo, 
     assert torch.equal(got, again)
     mirror = ref.beta_grad_split(d_re.cpu(), d_im.cpu(), re.cpu(), im.cpu(), lo, nbits)
     assert bool(((got.cpu() - mirror).abs() <= tol.cpu()).all())
+
+
+@pytest.mark.parametrize("n,lo,nbits", [(13, 0, 13), (16, 0, 16), (18, 0, 18), (18, 6, 12)])
+def test_beta_grad_rows_alone_equal_the_batch_bitwise(cuda_device, n, lo, nbits):
+    """A row's partials have places set by its tiles alone, so its ∂β has
+    the same bits alone, in part of the batch and in the whole batch (the
+    last case runs two groups fused in one launch)."""
+    re, im, _, _, _ = _inputs(n, 5, 40 + n + lo, cuda_device)
+    d_re, d_im, _, _, _ = _inputs(n, 5, 140 + n + lo, cuda_device)
+    got = betagrad.beta_grad(d_re, d_im, re, im, lo, nbits)
+    for rows in (slice(0, 1), slice(2, 5), slice(4, 5)):
+        part = betagrad.beta_grad(d_re[rows], d_im[rows], re[rows], im[rows], lo, nbits)
+        assert torch.equal(part, got[rows]), rows
+
+
+def _service_batch(dev, n_qubits, rows, seed):
+    """A dispatch as the service pads it: edges at the bucket's capacity,
+    filler rows, the masks on the host."""
+    from repro_torch.core import qaoa as qaoa_mod
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.partition import partition_for_solver
+    from repro_torch.service import edge_capacity
+
+    subs = partition_for_solver(Graph.erdos_renyi(40, 0.2, seed=seed), n_qubits).subgraphs
+    return qaoa_mod.pad_subgraph_arrays(subs[:rows], n_qubits, e_pad=edge_capacity(n_qubits),
+                                        n_rows=rows, device=dev)
+
+
+def test_graphed_dispatch_equals_eager_bitwise(cuda_device):
+    """The local backend's CUDA graph runs the eager path's kernels in its
+    order: every output bit for bit, on the batch it was captured on and on
+    another one replayed through the same graph."""
+    from repro_torch.core import qaoa as qaoa_mod
+    from repro_torch.service import backend
+
+    qcfg = qaoa_mod.QAOAConfig(n_qubits=8, p_layers=2, opt_steps=5, top_k=2)
+    backend.clear_graphs()
+    local = backend.LocalBackend("cuda")
+    for seed in (0, 1):
+        e, w, m = _service_batch(cuda_device, 8, 16, seed)
+        want = qaoa_mod.solve_subgraph_batch(e, w, m, qcfg)
+        got = local.solve_batch(qcfg, e, w, m)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert backend.graph_count() == 1
+
+
+def test_graph_replay_counts_the_eager_launches(cuda_device):
+    """A replay adds what its eager counterpart would: each kernel's
+    launches and each op's ledger notes."""
+    from repro_torch.core import qaoa as qaoa_mod
+    from repro_torch.obs.ledger import get_ledger
+    from repro_torch.service import backend
+
+    qcfg = qaoa_mod.QAOAConfig(n_qubits=8, p_layers=2, opt_steps=3)
+    e, w, m = _service_batch(cuda_device, 8, 16, 2)
+    local = backend.LocalBackend("cuda")
+    local.solve_batch(qcfg, e, w, m)  # captured here, if it was not yet
+    counts = []
+    for run in (lambda: qaoa_mod.solve_subgraph_batch(e, w, m, qcfg),
+                lambda: local.solve_batch(qcfg, e, w, m)):
+        ops.reset_launch_counts()
+        get_ledger().reset()
+        run()
+        counts.append((ops.launch_counts(), dict(get_ledger().op_traces)))
+    assert counts[0] == counts[1]
+    assert counts[0][0]["beta_grad"] == qcfg.opt_steps * qcfg.p_layers
+
+
+def test_a_built_service_has_every_grid_bucket_and_its_drain_captures_none(cuda_device):
+    """The service captures every bucket of its planner's grid when it is
+    built (a capture synchronises the card); a drain then replays only."""
+    from repro_torch.core.graph import Graph
+    from repro_torch.service import ServiceConfig, SolveService, backend
+
+    backend.clear_graphs()
+    svc = SolveService(ServiceConfig(batch_slots=16, max_qubits=8, device="cuda"))
+    graphs = backend.graph_count()
+    # a graph a bucket but for top_k, which the graph leaves out
+    assert graphs == len({(q.n_qubits, q.opt_steps, q.p_layers, lin)
+                          for q, _, lin in svc._grid_buckets()})
+    for seed in range(3):
+        svc.submit(Graph.erdos_renyi(30, 0.2, seed=seed))
+    svc.drain()
+    assert backend.graph_count() == graphs and svc.stats.dispatches >= 1
 
 
 def test_layer_backward_launches_the_beta_grad_kernel(cuda_device):

@@ -212,10 +212,11 @@ def _jax_beta_vjp(kind, n, lo, nbits):
 
 @pytest.mark.parametrize("kind,n,lo,nbits", [
     ("layer", 6, 0, 6), ("layer", 9, 0, 9), ("layer", 13, 0, 13),
-    ("bits", 9, 2, 7), ("bits", 12, 5, 3), ("bits", 13, 7, 6)])
+    ("bits", 9, 2, 7), ("bits", 12, 5, 3), ("bits", 13, 7, 6), ("bits", 14, 2, 12)])
 def test_beta_grad_split_matches_jax_vjp(kind, n, lo, nbits):
     """The ∂β kernel's decomposition (`ref.beta_grad_split`: groups of
-    qubits, in-tile pair products, a pairwise tree, f64 sums) on the JAX
+    qubits, two at n = 13 and at qubits [2, 14), in-tile pair products, a
+    pairwise tree, f64 sums) on the JAX
     forward's outputs and a random cotangent, against ∂β of the JAX
     ``custom_vjp`` (``_layer_bwd`` / ``_mixer_bits_bwd``: neighbour sums
     and ``jnp.sum``), within ``BETA_GRAD_RTOL · S`` a row; the plain

@@ -5,7 +5,8 @@ another route: ``cut_batch_dense`` as bf16 tensor-core products of the
 spin rows with the three bf16 planes of A (`ref.split_bf16`), ``cutvals``
 and ``cutvals_at`` by lookup in per-edge-row tables
 (`ref.cutvals_split_tables`), and the layer backward's ∂β as per-group
-tiles of pair products (`ref.beta_grad_groups`). Their plain mirrors in
+tiles of pair products (`ref.beta_grad_groups`; two reads of the planes
+at n = 24, `ref.beta_grad_launches`). Their plain mirrors in
 ``kernels/ref.py`` carry the algebra, and are held here against the plain
 versions and against the JAX package's Pallas kernels (interpret mode),
 with inputs made by numpy from a seed:
@@ -310,17 +311,56 @@ def test_cutvals_split_matches_pallas(n, real):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("lo,nbits", [(0, 24), (0, 26), (0, 5), (3, 9), (7, 7), (21, 3),
-                                      (12, 12), (2, 23)])
+                                      (12, 12), (2, 23), (0, 20), (0, 12), (1, 13), (22, 2),
+                                      (0, 23), (0, 22)])
 def test_beta_grad_groups_cover_the_range_in_tiles(lo, nbits):
+    """Consecutive groups of at most 12 qubits cover [lo, lo + nbits); a
+    tile fits BETA_TILE and takes runs of at least 16 lanes (64 bytes)
+    where Y allows; a launch reads the planes once for one group or for two
+    adjacent groups of equal size on the same lanes, each filling its tile;
+    every term has a tree leaf."""
+    launches = ref.beta_grad_launches(lo, nbits)
     groups = ref.beta_grad_groups(lo, nbits)
-    assert groups[0][0] == lo
-    assert sum(k for _, k, _ in groups) == nbits
-    for (g0, k, y), nxt in zip(groups, groups[1:] + [(lo + nbits, 0, 0)]):
-        assert nxt[0] == g0 + k and 1 <= k <= 12
-        assert (2**g0) % y == 0 and 2**k * y <= ref.BETA_TILE
-        assert y >= min(2**g0, ref.BETA_LANES)  # rows of 32 lanes where Y allows
-    if (lo, nbits) == (0, 24):  # the main path's n: three passes
-        assert groups == [(0, 12, 1), (12, 7, 32), (19, 5, 128)]
+    assert groups == [p for launch in launches for p in launch]
+    assert groups[0].g0 == lo
+    assert sum(p.k for p in groups) == nbits
+    for p, nxt in zip(groups, groups[1:] + [ref.BetaPass(lo + nbits, 0, 0)]):
+        y = 2**p.g0
+        assert nxt.g0 == p.g0 + p.k and 1 <= p.k <= ref.BETA_MAX_K
+        assert y % p.lanes == 0 and p.lanes >= min(y, ref.BETA_LANES)
+        assert 2**p.k * p.lanes <= ref.BETA_TILE
+        assert p.lanes.bit_length() - 1 + p.k <= ref.BETA_SLOTS
+    for launch in launches:
+        assert len(launch) in (1, 2)
+        if len(launch) == 2:
+            a, b = launch
+            assert b.g0 == a.g0 + a.k and a.lanes == b.lanes and a.k == b.k
+            assert 2**a.k * a.lanes == ref.BETA_TILE and a.lanes < 2**b.g0
+    if (lo, nbits) == (0, 24):  # the main path's n: two reads of the planes
+        assert launches == [((0, 12, 1),), ((12, 6, 64), (18, 6, 64))]
+    if (lo, nbits) == (0, 20):  # the headline's n
+        assert launches == [((0, 12, 1),), ((12, 8, 16),)]
+    if (lo, nbits) == (0, 12):  # the service's n: one read
+        assert launches == [((0, 12, 1),)]
+    if (lo, nbits) == (0, 23):  # an odd rest above qubit 11 is not fused
+        assert launches == [((0, 12, 1),), ((12, 8, 16),), ((20, 3, 512),)]
+    if (lo, nbits) == (0, 22):
+        assert launches == [((0, 12, 1),), ((12, 5, 128), (17, 5, 128))]
+
+
+@pytest.mark.parametrize("n,lo,nbits", [(24, 0, 24), (20, 0, 20), (12, 0, 12), (4, 0, 4),
+                                        (14, 7, 7), (24, 21, 3), (26, 22, 2), (26, 0, 26)])
+def test_beta_pass_tiles_give_every_amplitude_one_share(n, lo, nbits):
+    """Each group's tiles (its partials a row, one a tile) hold every one
+    of the 2^n amplitudes once: partials × amplitudes a tile = 2^n."""
+    for p in ref.beta_grad_groups(lo, nbits):
+        slabs, parts = ref.beta_pass_tiles(n, p)
+        per_tile = 2**p.k * p.lanes * slabs
+        assert per_tile <= ref.BETA_TILE and parts * per_tile == 2**n
+        assert 2 ** (n - p.g0 - p.k) % slabs == 0
+    if (n, lo, nbits) == (24, 0, 24):
+        assert [ref.beta_pass_tiles(n, p) for p in ref.beta_grad_groups(lo, nbits)] == \
+            [(1, 4096), (1, 4096), (1, 4096)]
 
 
 def _cotangents(n, seed, b=3):
@@ -333,7 +373,8 @@ def _cotangents(n, seed, b=3):
 
 
 @pytest.mark.parametrize("n,lo,nbits", [(4, 0, 4), (9, 0, 9), (13, 0, 13), (14, 0, 14),
-                                        (10, 2, 7), (12, 5, 3), (14, 7, 7), (14, 9, 5)])
+                                        (10, 2, 7), (12, 5, 3), (14, 7, 7), (14, 9, 5),
+                                        (16, 4, 12), (14, 1, 13)])
 def test_beta_grad_split_within_tolerance_of_the_plain_version(n, lo, nbits):
     planes = _cotangents(n, seed=n + lo)
     got = ref.beta_grad_split(*planes, lo, nbits)

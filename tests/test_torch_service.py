@@ -20,6 +20,7 @@ What each comparison holds, and why:
 """
 
 import dataclasses
+import json
 import types
 from pathlib import Path
 
@@ -192,8 +193,67 @@ def test_planner_equals_reference():
 
 def test_default_prior_is_the_cards_calibration_not_the_cpu_bench():
     assert Path(tplanner.DEFAULT_BENCH_PATH).parent == Path(tplanner.__file__).parent
-    want = tplanner.CostModel.from_bench_file(tplanner.DEFAULT_BENCH_PATH)
-    assert tplanner.Planner().base_model == want
+    with open(tplanner.DEFAULT_BENCH_PATH) as f:
+        fixed = json.load(f)["fixed"]
+    want = tplanner.CostModel.from_bench_file(tplanner.DEFAULT_BENCH_PATH, **fixed)
+    assert tplanner.Planner().base_model == want == tplanner.load_prior()
+
+
+def test_a_row_without_knobs_fits_as_the_reference():
+    """Rows that carry no ``knobs`` fit exactly as the reference's `fit`;
+    a row carrying the default knobs fits as one without them, and its
+    own knobs are what its work terms count."""
+    with open(BENCH) as f:
+        rows = [r for r in json.load(f)["rows"] if r.get("mode") == "single"]
+    knobs = tplanner.KnobTuple(n_qubits=10, top_k=1, opt_steps=12, beam_width=64, p_layers=2)
+    jk = jplanner.KnobTuple(*knobs)
+    for over in ({}, {"c_dispatch": 1e-3, "c_merge_base": 2e-4, "batch_slots": 128}):
+        want = dataclasses.asdict(jplanner.CostModel.fit(rows, jk, **over))
+        assert dataclasses.asdict(tplanner.CostModel.fit(rows, knobs, **over)) == want
+        tagged = [dict(r, knobs=knobs._asdict()) for r in rows]
+        assert dataclasses.asdict(tplanner.CostModel.fit(tagged, knobs, **over)) == want
+    doubled = [dict(r, knobs=knobs._replace(opt_steps=25)._asdict()) for r in rows]
+    half = tplanner.CostModel.fit(doubled, knobs, c_dispatch=0.0)
+    full = tplanner.CostModel.fit(rows, knobs, c_dispatch=0.0)
+    assert half.c_solve == pytest.approx(full.c_solve * 13 / 26, rel=1e-12)
+
+
+def test_the_cards_prior_prices_the_solve():
+    """On the committed calibration (phase 21a on the card: rows over T, p,
+    N, K and W, and the fixed terms fitted there) the solve stage has a cost,
+    and predicted cost rises with T, p and N."""
+    model = tplanner.Planner().cost_model
+    assert model.c_solve > 0
+    with open(tplanner.DEFAULT_BENCH_PATH) as f:
+        cal = json.load(f)
+    seen = {(r["knobs"]["opt_steps"], r["knobs"]["p_layers"], r["knobs"]["n_qubits"],
+             r["knobs"]["top_k"], r["knobs"]["beam_width"]) for r in cal["rows"]}
+    assert {k[0] for k in seen} >= {4, 12, 30} and {k[1] for k in seen} >= {1, 2, 3}
+    assert len({k[2] for k in seen}) >= 3 and set(cal["fixed"]) >= {"c_dispatch",
+                                                                    "c_merge_base"}
+    # the planner grid's K and W, so the merge's two terms fit apart
+    assert {k[3] for k in seen} >= {1, 2, 4} and {k[4] for k in seen} >= {32, 128, 512}
+    base = tplanner.KnobTuple(n_qubits=10, top_k=2, opt_steps=12, beam_width=128, p_layers=2)
+    for field, lo, hi in (("opt_steps", 4, 30), ("p_layers", 1, 3), ("n_qubits", 8, 12)):
+        a = model.predict(400, 8000, base._replace(**{field: lo})).solve_s
+        b = model.predict(400, 8000, base._replace(**{field: hi})).solve_s
+        assert b > a, (field, a, b)
+
+
+def test_a_tighter_deadline_lowers_t_or_p():
+    """At n = 400 and |E| = 8000, on the card's prior: a 0.05 s deadline is
+    predicted to be met (the old prior predicted 0.110 s at best), and the
+    tightest deadline any tuple of the grid meets gets fewer Adam steps or
+    layers than a 2 s one. (On the card the top of the grid is predicted
+    at about 35 ms, so 0.05 s binds no knob there.)"""
+    planner = tplanner.Planner()
+    tight = planner.plan(400, 8000, tplanner.SLA(deadline_s=0.05))
+    assert tight.meets_deadline and tight.predicted.total_s <= 0.05
+    floor = min(planner.cost_model.predict(400, 8000, kn).total_s for kn in planner.grid)
+    tightest = planner.plan(400, 8000, tplanner.SLA(deadline_s=floor)).knobs
+    loose = planner.plan(400, 8000, tplanner.SLA(deadline_s=2.0)).knobs
+    assert (tightest.opt_steps, tightest.p_layers) != (loose.opt_steps, loose.p_layers)
+    assert tightest.opt_steps <= loose.opt_steps and tightest.p_layers <= loose.p_layers
 
 
 def _same_instance(j, t):
@@ -415,6 +475,60 @@ def test_solve_subgraph_batch_reads_nothing_back(monkeypatch):
     monkeypatch.undo()
     assert torch.equal(got.bitstrings, want.bitstrings)
     assert torch.equal(got.expectation, want.expectation)
+
+
+def test_the_service_prepares_every_bucket_its_grid_reaches():
+    """A backend that graphs its buckets gets, when the service is built,
+    every (QAOAConfig, edge capacity, linear or not) a plan of the
+    planner's grid can fill, at the configured rows; the CPU's local
+    backend captures nothing."""
+    calls = []
+
+    class Recording(tbackend.LocalBackend):
+        def prepare(self, buckets, rows):
+            calls.append((list(buckets), rows))
+            return super().prepare(buckets, rows)
+
+    svc = tsched.SolveService(tsched.ServiceConfig(batch_slots=8, max_qubits=10, device=CPU),
+                              backend=Recording(CPU))
+    (buckets, rows), = calls
+    assert rows == 8
+    want = {(kn.n_qubits, kn.opt_steps, kn.p_layers, kn.top_k) for kn in svc.planner.grid}
+    assert {(q.n_qubits, q.opt_steps, q.p_layers, q.top_k) for q, _, _ in buckets} == want
+    assert len(buckets) == 2 * len(want) == len(set(buckets))
+    assert all(e_pad == tsched.edge_capacity(q.n_qubits) for q, e_pad, _ in buckets)
+    assert {lin for _, _, lin in buckets} == {False, True}
+    assert tbackend.LocalBackend(CPU).prepare(buckets, rows) == 0
+    assert tbackend.graph_count() == 0
+
+
+def test_set_aside_takes_a_blocks_counts_out():
+    """`_build.set_aside_launches` and the ledger's `set_aside_ops` leave the
+    counters as they were before the block and hand over what it counted;
+    `add_launches` / `add_ops` count it back (a graph's replay)."""
+    from repro_torch.kernels import _build
+    from repro_torch.obs.ledger import get_ledger
+
+    ledger = get_ledger()
+    _build.reset_launches()
+    ledger.reset()
+    _build.count_launch("cutvals")
+    ledger.note_op("cutvals", "cuda")
+    with _build.set_aside_launches() as launched, ledger.set_aside_ops() as noted:
+        _build.count_launch("cutvals")
+        _build.count_launch("beta_grad")
+        _build.count_launch("beta_grad")
+        ledger.note_op("apply_layer", "cuda")
+    assert launched == {"cutvals": 1, "beta_grad": 2}
+    assert noted == {("apply_layer", "cuda"): 1}
+    assert _build.launches == {"cutvals": 1}
+    assert ledger.op_traces == {("cutvals", "cuda"): 1}
+    _build.add_launches(launched)
+    ledger.add_ops(noted)
+    assert _build.launches == {"cutvals": 2, "beta_grad": 2}
+    assert ledger.op_traces == {("cutvals", "cuda"): 1, ("apply_layer", "cuda"): 1}
+    _build.reset_launches()
+    ledger.reset()
 
 
 @pytest.mark.parametrize("rows", [1, 3, 8])

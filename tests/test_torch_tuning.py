@@ -209,24 +209,29 @@ def test_wrappers_launch_builtin_geometry_with_tuning_off(recorder):
 
 
 @pytest.mark.parametrize("n,lo,nbits,want", [
-    # (x_dim, k, y_dim, y_tile, row_parts, part0) a group pass
-    (14, 0, 14, [(4, 12, 1, 1, 8, 0), (1, 2, 4096, 1024, 8, 4)]),
-    (13, 2, 7, [(16, 7, 4, 4, 16, 0)]),
-    (16, 13, 3, [(1, 3, 8192, 512, 16, 0)]),
-    (16, 5, 11, [(16, 7, 32, 32, 32, 0), (1, 4, 4096, 256, 32, 16)]),
+    # a launch: (groups, then (g0, k, lanes, slabs, part0) of each, zeros
+    # for a missing second), and the partials a row
+    (14, 0, 14, ([(1, 0, 12, 1, 1, 0), (1, 12, 2, 1024, 1, 4)], 8)),
+    (13, 2, 7, ([(1, 2, 7, 4, 8, 0)], 2)),
+    (16, 13, 3, ([(1, 13, 3, 512, 1, 0)], 16)),
+    (16, 5, 11, ([(1, 5, 8, 16, 1, 0), (1, 13, 3, 512, 1, 16)], 32)),
+    (18, 6, 12, ([(2, 6, 6, 64, 1, 0, 12, 6, 64, 1, 64)], 128)),
 ])
 def test_beta_grad_launches_one_pass_per_group(recorder, n, lo, nbits, want):
-    """The ∂β wrapper hands each group of `ref.beta_grad_groups` to one
-    pass (its (B, X, 2^k, Y) view, lanes and slice of the partials), then
-    one final sum over a row's partials; one count a call."""
+    """The ∂β wrapper hands each launch of `ref.beta_grad_launches` (one
+    group, or two fused) to one pass with its groups' (g0, k, lanes,
+    slabs, slice of the partials), then one final sum over a row's
+    partials; one count a call."""
+    launches, parts = want
     re = torch.zeros((2, 2**n))
     ops.reset_launch_counts()
     betagrad.beta_grad(re, re, re, re, lo, nbits)
-    assert [c[5:12] for c in recorder["beta_grad_group"]] == [(2, *g) for g in want]
-    assert recorder["beta_grad_final"][-1][2:4] == (2, want[0][4])
+    got = [c[5:19] for c in recorder["beta_grad_pass"]]
+    assert got == [(2, n, parts, *w, *[0] * (11 - len(w))) for w in launches]
+    assert recorder["beta_grad_final"][-1][2:4] == (2, parts)
     assert ops.launch_counts()["beta_grad"] == 1
-    assert [(g0, k, y) for g0, k, y in ref.beta_grad_groups(lo, nbits)] == [
-        (lo + sum(w[1] for w in want[:i]), g[1], g[3]) for i, g in enumerate(want)]
+    assert [tuple(p) for launch in ref.beta_grad_launches(lo, nbits) for p in launch] == [
+        tuple(w[1 + 5 * i:4 + 5 * i]) for w in launches for i in range(w[0])]
 
 
 @pytest.mark.parametrize("n", [16, 24, 26])
