@@ -94,8 +94,20 @@ runs these phases, each printing one line, failing on the first fault:
     tokens/s, peak memory with remat off and ``batch_dots``, a falling loss;
     (d) qwen's 6 steps straight against 3, a crash and a resume, bitwise;
     (e), at the end with the other profiles, one profiled qwen step;
+24. the dry-run and the LM sharding rules (``repro_torch.launch.dryrun``,
+    ``launch.sharding``): (a) a subprocess traces qwen1.5-0.5b's train_4k,
+    prefill_32k and decode_32k cells, mamba2-1.3b's long_500k and the
+    sharded 30-qubit QAOA on the fake 16 x 16 world (fake tensors, CUDA
+    never initialised): per device FLOPs against the model's, bytes,
+    collectives and the three roofline terms on the H100 data sheet, and a
+    column-parallel product counted at 1/16; (b) qwen1.5-0.5b and
+    mamba2-1.3b at published widths in f32 placed by ``params_shardings``
+    on a one-rank NCCL ``DeviceMesh`` (data=1, model=1): a 4 x 128 forward
+    bitwise equal to the one-device forward, and ``reshard_state`` back to
+    the card alone bitwise; (c) with two cards, the (1, 2) → (2, 1) re-mesh
+    over NCCL, forwards within 1e-5;
 
-Phases 21a-f, 22a-c and 23a-d run right after phase 1, before the first
+Phases 21a-f, 22a-c, 23a-d and 24 run right after phase 1, before the first
 profiler trace (21g); then one JSON line of per-kernel numbers (``launches`` from phase 4's
 solve, ``service_launches`` from 21b's drain), the nvidia-smi line, and
 ``{"ok": true, ...}`` as the last line. It exits non-zero, printing no
@@ -162,6 +174,23 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 20
 # S = 512 (~20 (B, S, 4096) f32 tensors a layer, 48 layers) would not fit
 TRAIN_PEAK_SEQ = {"qwen1.5-0.5b": 512, "mamba2-1.3b": 128}
 GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-4  # of each reference leaf's max |g|, as the CPU tests
+# the dry-run and the sharding rules (phase 24): 24a's cells on the fake
+# single-pod world, 24b's forwards at published widths on a one-rank mesh
+DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k"), ("qwen1.5-0.5b", "prefill_32k"),
+                ("qwen1.5-0.5b", "decode_32k"), ("mamba2-1.3b", "long_500k"))
+DRYRUN_TAG = "chip_smoke"
+DRYRUN_SCRIPT = r"""
+import json, sys
+from repro_torch.launch import dryrun
+frac = dryrun.per_rank_fraction()
+for arch, shape in json.loads(sys.argv[1]):
+    dryrun.main(["--arch", arch, "--shape", shape, "--tag", sys.argv[2]])
+dryrun.run_qaoa_dryrun(multi_pod=False, schedule="alternating", tag=sys.argv[2])
+print(json.dumps({"per_rank_fraction": frac}))
+"""
+PLACE_ARCHS = ("qwen1.5-0.5b", "mamba2-1.3b")
+PLACE_BATCH, PLACE_SEQ = 4, 128
+REMESH_ATOL = 1e-5  # 24c: the reference's re-mesh tolerance
 CPU_BAND = 0.02  # of Σ|w|: the default-steps band of tests/test_torch_core.py
 TIE_RTOL = 1e-6  # marginals this close count as a tie the last ulp may break
 
@@ -2430,6 +2459,180 @@ def crash_resume_phase(torch, root: str, smi: str) -> None:
           f"host, write, fsync, rename)")
 
 
+def dryrun_phase(root: str) -> None:
+    """Phase 24a: the dry-run's cells in a subprocess (the fake world is
+    this process's default group there, and CUDA stays untouched), each
+    record read back and checked."""
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.roofline import analysis as RA
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", DRYRUN_SCRIPT, json.dumps(DRYRUN_CELLS), DRYRUN_TAG],
+        cwd=root, env={**os.environ, "PYTHONPATH": os.path.join(root, "src")},
+        capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"dry-run subprocess rc {out.returncode}: "
+          f"{out.stdout[-1500:]} {out.stderr[-1500:]}")
+    frac = json.loads(out.stdout.strip().splitlines()[-1])["per_rank_fraction"]
+    check(frac == 1 / 16, f"a Shard(1) product over model=16 counted at {frac} of its FLOPs")
+    files = [(f"{specs.get_cell(a, sh).arch}__{sh}", specs.get_cell(a, sh))
+             for a, sh in DRYRUN_CELLS] + [("paraqaoa__qaoa_alternating", None)]
+    for stem, cell in files:
+        with open(os.path.join(dryrun.RESULTS_DIR, f"{stem}__singlepod__{DRYRUN_TAG}.json")) as f:
+            rec = json.load(f)
+        check(rec["status"] == "ok" and rec["cuda_initialized"] is False,
+              f"dry-run {stem}: {rec.get('status')} {rec.get('error', '')[:300]}, "
+              f"CUDA initialised {rec.get('cuda_initialized')}")
+        ratio = rec["flops_per_device"] * rec["chips"] / rec["model_flops"]
+        if cell is not None and cell.kind in ("train", "prefill"):
+            check(ratio >= 1.0, f"dry-run {stem}: FLOPs a device x chips {ratio:.3f} "
+                  "of the model's")
+        coll = rec["collectives"]
+        print(f"[24a dryrun] {rec['arch']} x {rec['shape']} x {rec['mesh']} "
+              f"({rec['route']}): FLOPs/device {rec['flops_per_device']:.4e} "
+              f"(x {rec['chips']} = {ratio:.3f} x model {rec['model_flops']:.4e}) | "
+              f"bytes/device {rec['bytes_per_device']:.4e} | collectives "
+              f"{coll['counts']}, wire {rec['collective_wire_bytes']:.4e} B | "
+              f"compute {rec['compute_s']:.6f} s, memory {rec['memory_s']:.6f} s, "
+              f"collective {rec['collective_s']:.6f} s on the {RA.DATA_SHEET} data "
+              f"sheet | bottleneck {rec['bottleneck']} | traced in "
+              f"{rec['compile_s']:.1f} s, CUDA initialised {rec['cuda_initialized']}")
+    print(f"[24a dryrun] {len(files)} records ok; a column-parallel product over "
+          f"model=16 counted at {frac} of its dense FLOPs; subprocess "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def placement_phase(torch, dev, smi: str) -> None:
+    """Phase 24b: the sharding rules on the card. Each arch at its
+    published width in f32 is placed by ``params_shardings`` on a one-rank
+    NCCL mesh (data=1, model=1); its 4 x 128 forward is held bitwise
+    against the one-device forward, and ``reshard_state`` brings every
+    parameter back to the card alone, bitwise."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.launch.serve import resolve_config
+    from repro_torch.models import layers as ML
+    from repro_torch.models.model import build_model
+    from repro_torch.training.fault_tolerance import reshard_state
+
+    torch.cuda.set_device(torch.cuda.current_device())  # the mesh's device, named
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = device_mesh((1, 1), ("data", "model"), "cuda")
+        for arch in PLACE_ARCHS:
+            cfg, _ = resolve_config(arch, reduced=False)
+            model = build_model(cfg)
+            params = model.init(0, device=dev)
+            tokens = lm_batch(torch, cfg, PLACE_BATCH, PLACE_SEQ, seed=24)["tokens"].to(dev)
+            with torch.no_grad():
+                want = model.forward(params, {"tokens": tokens})[0]
+                one_ms = time_ms(torch, lambda: model.forward(params, {"tokens": tokens}), 3)
+            kept = {n: p.detach().clone() for n, p in params.named_parameters()}
+            shard = SH.params_shardings(params, cfg, mesh)
+            reshard_state(params, shard)
+            check(all(isinstance(p, DTensor) for p in params.parameters()),
+                  f"{arch}: a parameter was not placed")
+            batch = {"tokens": SH.place(tokens, SH.batch_specs(cfg, mesh, "prefill")["tokens"], mesh)}
+            ML.configure_shard_hints(mesh.mesh_dim_names)
+            try:
+                with torch.no_grad(), implicit_replication():
+                    got = model.forward(params, batch)[0].full_tensor()
+                    mesh_ms = time_ms(torch, lambda: model.forward(params, batch), 3)
+            finally:
+                ML.configure_shard_hints(())
+            check(torch.equal(got, want), f"{arch}: the placed forward differs from the "
+                  f"one-device forward by {(got - want).abs().max().item():.3g}")
+            reshard_state(params, dev)
+            back = dict(params.named_parameters())
+            check(all(not isinstance(p, DTensor) and p.device == want.device
+                      and torch.equal(p, kept[n]) for n, p in back.items()),
+                  f"{arch}: reshard_state back to the card changed a parameter")
+            print(f"[24b placement] {arch} ({cfg.n_params() / 1e9:.3f} B params, f32) on "
+                  f"a one-rank NCCL mesh (data=1, model=1): {len(shard)} leaves placed, "
+                  f"{PLACE_BATCH} x {PLACE_SEQ} forward bitwise equal to the one-device "
+                  f"forward; one-device {one_ms:.3f} ms, placed {mesh_ms:.3f} ms | "
+                  f"reshard_state back to the card bitwise | {smi}")
+            del params, kept, want, got, back
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def _remesh_rank(rank: int, port: int, src: str, queue) -> None:
+    """One rank of phase 24c: reduced qwen placed on (data=1, model=2), then
+    re-meshed from those shards onto (data=2, model=1), each forward
+    against the one-device forward."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models import layers as ML
+    from repro_torch.models.model import build_model
+    from repro_torch.training.fault_tolerance import reshard_state
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    cfg = configs.get_reduced("qwen1_5_0_5b")
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    tokens = (torch.arange(2 * 16, dtype=torch.int32, device="cuda").reshape(2, 16)
+              % cfg.vocab_size)
+    with torch.no_grad():
+        want = model.forward(params, {"tokens": tokens})[0]
+    errs = []
+    ML.configure_shard_hints(("data", "model"))
+    for shape in ((1, 2), (2, 1)):
+        mesh = device_mesh(shape, ("data", "model"), "cuda")
+        reshard_state(params, SH.params_shardings(params, cfg, mesh))
+        batch = {"tokens": SH.place(tokens, ("data", None), mesh)}
+        with torch.no_grad(), implicit_replication():
+            got = model.forward(params, batch)[0].full_tensor()
+        errs.append((got - want).abs().max().item())
+    queue.put((rank, errs))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def remesh_phase(torch, root: str) -> None:
+    """Phase 24c: the elastic re-mesh over NCCL, where there are two cards."""
+    if torch.cuda.device_count() < 2:
+        print(f"[24c remesh] not run: {torch.cuda.device_count()} CUDA device(s) visible, "
+              "the (1, 2) -> (2, 1) re-mesh needs 2 (tests/test_torch_sharding.py runs "
+              "(2, 4) -> (4, 2) -> one device over 8 gloo ranks on the CPU)")
+        return
+    import torch.multiprocessing as mp
+
+    queue = mp.get_context("spawn").SimpleQueue()
+    ctx = mp.spawn(_remesh_rank, args=(_free_port(), os.path.join(root, "src"), queue),
+                   nprocs=2, join=False)
+    got = sorted((queue.get() for _ in range(2)), key=lambda r: r[0])
+    while not ctx.join():
+        pass
+    worst = max(max(errs) for _, errs in got)
+    check(worst <= REMESH_ATOL, f"re-mesh forwards off by {worst} (tol {REMESH_ATOL})")
+    print(f"[24c remesh] reduced qwen1.5-0.5b over 2 NCCL ranks: (1, 2) then (2, 1) "
+          f"from the sharded state, forwards within {worst:.3g} of one device "
+          f"(tol {REMESH_ATOL})")
+
+
 def train_profile_phase(torch, s23) -> None:
     """Phase 23e, after every timed part of the smoke: one profiled
     qwen1.5-0.5b train step at published width (B = 8, S = 128): the
@@ -2549,6 +2752,10 @@ def main() -> int:
     s23 = train_phase(torch, LM_TRAIN[0], f32_rate, mem_bw, smi, "23b")
     train_phase(torch, LM_TRAIN[1], f32_rate, mem_bw, smi, "23c")
     crash_resume_phase(torch, root, smi)
+    # ---- 24. the dry-run and the sharding rules, before the profiler ----------
+    dryrun_phase(root)
+    placement_phase(torch, dev, smi)
+    remesh_phase(torch, root)
 
     service_profile_phase(torch, s21)
     del s21["svc"]

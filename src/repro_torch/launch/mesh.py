@@ -1,4 +1,4 @@
-"""The ``--mesh`` CLI spec and the mesh it builds (the port of
+"""The ``--mesh`` CLI spec and the meshes it builds (the port of
 ``repro/launch/mesh.py``; the parser is a copy of its lines 26-75).
 
 A spec is a comma-separated ``axis=size`` list, e.g. ``data=4`` or
@@ -7,6 +7,15 @@ A spec is a comma-separated ``axis=size`` list, e.g. ``data=4`` or
 power of two (the sharded statevector's qubit swap rotates log2(model)
 qubits). Parsing is pure string processing; `build_mesh` turns a parsed
 spec into a `core.axis.Mesh`.
+
+The LM sharding rules place tensors on a
+``torch.distributed.device_mesh.DeviceMesh`` instead:
+`make_production_mesh` and `make_test_mesh` build one over the current
+world (``torch.distributed`` must be initialised with as many ranks as the
+mesh has places: NCCL or gloo ranks, or the dry-run's fake world), and
+`data_axes`/`model_axis` read a mesh's roles. `mesh_axes` gives
+``{name: size}`` of a `DeviceMesh` or of a plain mapping that stands in
+for one (the sharding rules read only the names and sizes).
 """
 
 from __future__ import annotations
@@ -72,3 +81,54 @@ def build_mesh(spec: dict, device="cuda"):
         return Mesh.from_env(spec, device)
     return Mesh.local(spec)
 
+
+
+# --------------------------------------------------- DeviceMesh helpers --
+def mesh_axes(mesh) -> dict:
+    """``{axis name: size}`` of a `DeviceMesh`, or of a mapping standing in
+    for one."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _world_device_type() -> str:
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "no process group: initialise torch.distributed with as many ranks "
+            "as the mesh has places (the dry-run uses a fake world)")
+    return "cuda" if "nccl" in str(dist.get_backend()) else "cpu"
+
+
+def device_mesh(shape, names, device_type: str | None = None):
+    """A `DeviceMesh` of ``shape`` named ``names`` over the current world
+    (its size must be the product of ``shape``); ``device_type`` defaults to
+    ``"cuda"`` on NCCL and ``"cpu"`` otherwise."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    device_type = device_type or _world_device_type()
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = None):
+    """16×16 single-pod (256 places) or 2×16×16 multi-pod (512 places)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return device_mesh(shape, axes, device_type)
+
+
+def make_test_mesh(data: int = 2, model: int = 4, device_type: str | None = None):
+    """A small (data, model) mesh for tests over a few ranks (8 by default)."""
+    return device_mesh((data, model), ("data", "model"), device_type)
+
+
+def data_axes(mesh) -> tuple:
+    """All batch-shardable axes present in the mesh, in canonical order."""
+    axes = mesh_axes(mesh)
+    return tuple(a for a in ("pod", "data") if a in axes)
+
+
+def model_axis(mesh) -> str:
+    return "model"

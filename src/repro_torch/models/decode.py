@@ -101,7 +101,14 @@ def prefill(params, batch, cfg: ModelConfig, s_max: int):
 
 def _pad_cache(kvs, s_max, dtype):
     """(L, B, S_max, Hkv, hd) zeros with each layer's (B, S, Hkv, hd) in
-    [0, S)."""
+    [0, S); from DTensors, built on each rank's shards (batch over data,
+    heads over model as attention left them)."""
+    spec = A.head_spec(kvs[0].shape[2], kvs[0])
+    return L.on_shards(lambda *kvs: _pad_local(kvs, s_max, dtype), (None,) + spec,
+                       (spec,) * len(kvs), *kvs)
+
+
+def _pad_local(kvs, s_max, dtype):
     b, s, hkv, hd = kvs[0].shape
     cache = torch.zeros((len(kvs), b, s_max, hkv, hd), dtype=dtype,
                         device=kvs[0].device)
@@ -134,7 +141,7 @@ def _prefill_ssm(params, x, cfg, s_max):
             x, kv = T.shared_attn_block(params.shared_attn, x, cfg)
             kvs.append(kv)
         xn = L.rmsnorm(bp.ln1, x, cfg.norm_eps)
-        proj = torch.matmul(xn, bp.ssm.in_proj)
+        proj = L.linear(xn, bp.ssm.in_proj)
         _, xin, b_mat, c_mat, _ = S._split_proj(
             proj, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads)
         conv_in = torch.cat([xin, b_mat, c_mat], dim=-1)

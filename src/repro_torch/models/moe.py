@@ -22,6 +22,8 @@ Supports the two assigned MoE archs:
 
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -30,6 +32,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
+
+# Shard the dispatched capacity axis over the data axes, so the (E, C, D)
+# activations scale with the whole mesh instead of only the expert axis.
+_CAP_SHARD = False
+
+
+def set_capacity_sharding(on: bool) -> None:
+    global _CAP_SHARD
+    _CAP_SHARD = bool(on)
 
 
 class MoE(nn.Module):
@@ -69,6 +80,13 @@ def capacity(t: int, k: int, e: int, capacity_factor: float) -> int:
     return max(int(np.ceil(t * k / e * capacity_factor)), 1)
 
 
+def _route_local(xf, router, k: int, e: int):
+    """`route` on a block of tokens, with the one-hot of each token's first
+    expert: (probs, gate values, expert ids, one-hot (T, E) f32)."""
+    probs, gate_vals, expert_idx = route(SimpleNamespace(router=router), xf, k)
+    return probs, gate_vals, expert_idx, F.one_hot(expert_idx[:, 0], e).float()
+
+
 def moe_apply(
     params,
     x,  # (B, S, D)
@@ -77,21 +95,60 @@ def moe_apply(
     capacity_factor: float = 1.25,
     dense_residual: bool = False,
 ):
-    """Returns (y, aux_loss). aux_loss is the load-balancing loss."""
+    """Returns (y, aux_loss). aux_loss is the load-balancing loss.
+
+    On DTensors (the sharded forward) the router runs on each rank's tokens,
+    the dispatch tables and the combine on every token, replicated (the
+    capacity is global over the batch, as in the reference; DTensor has no
+    rule for the sorts and ``searchsorted``), and the expert products over
+    the `model` axis as the shard hints place them."""
     b, s, d = x.shape
     e = params.router.shape[-1]
     t = b * s
-    dev = x.device
     xf = x.reshape(t, d)
-    probs, gate_vals, expert_idx = route(params, xf, k)
+    tok = (L.batch_axes(t, xf), None) if L.is_dtensor(xf) else (L.DP, None)
+    probs, gate_vals, expert_idx, first_hot = L.on_shards(
+        functools.partial(_route_local, k=k, e=e), [tok] * 4, (tok, (None, None)),
+        xf, params.router,
+        note="moe: router on each rank's tokens (local_map), dispatch and combine "
+             "replicated (local_map: no rule for sort/searchsorted)")
 
     # ---- load-balancing auxiliary loss (Switch-style) ---------------------
     me = torch.mean(probs, dim=0)  # (E,)
-    ce = torch.mean(F.one_hot(expert_idx[:, 0], e).float(), dim=0)
+    ce = torch.mean(first_hot, dim=0)
     aux = e * torch.sum(me * ce)
 
     # ---- sort-based dispatch ----------------------------------------------
     cap = capacity(t, k, e, capacity_factor)
+    rep = (None, None)
+    token_of, gate_of, slots = L.on_shards(
+        functools.partial(_dispatch, cap=cap, e=e), [(None,), (None,), rep],
+        (rep, rep), expert_idx, gate_vals)
+    x_e = L.on_shards(functools.partial(_gather_rows, shape=(e, cap, d)),
+                      (None, None, None), (rep, (None,)), xf, token_of)  # (E, C, D)
+    cap_ax = L.DP if _CAP_SHARD else None
+    x_e = L.shard_hint(x_e, "model", cap_ax, None)  # expert-parallel dispatch
+
+    g = torch.bmm(x_e, params.w_gate)
+    u = torch.bmm(x_e, params.w_up)
+    y_e = torch.bmm(F.silu(g) * u, params.w_down)  # (E, C, D)
+    y_e = L.shard_hint(y_e, "model", cap_ax, None)
+
+    y = L.on_shards(functools.partial(_combine, k=k), rep, ((None, None, None), (None,), rep),
+                    y_e, gate_of, slots)
+    y = y.reshape(b, s, d)
+
+    if dense_residual:
+        y = y + L.mlp_apply(params.dense, x, "silu")
+    return y.to(x.dtype), aux
+
+
+def _dispatch(expert_idx, gate_vals, cap: int, e: int):
+    """The sort-based dispatch of all T tokens' k assignments: (token_of
+    (E·C,), T where a slot is empty; gate_of (E·C,); slots (T, k), each
+    assignment's slot, E·C where it dropped, ascending in a row)."""
+    t, k = expert_idx.shape
+    dev = expert_idx.device
     ea = expert_idx.reshape(-1)  # (T*k,)
     order = torch.sort(ea, stable=True).indices
     sorted_e = ea[order]
@@ -111,27 +168,29 @@ def moe_apply(
     token_of = torch.where(filled, table // k, t)  # t = zero-pad row
     gate_of = torch.where(
         filled, gate_vals.reshape(-1)[table.clamp(max=t * k - 1)], 0.0)
-
-    xp = torch.cat([xf, torch.zeros((1, d), dtype=xf.dtype, device=dev)], dim=0)
-    x_e = xp[token_of].reshape(e, cap, d)  # (E, C, D)
-
-    g = torch.bmm(x_e, params.w_gate)
-    u = torch.bmm(x_e, params.w_up)
-    y_e = torch.bmm(F.silu(g) * u, params.w_down)  # (E, C, D)
-
-    y_flat = y_e.reshape(e * cap, d) * gate_of[:, None].to(y_e.dtype)
-    # combine: each assignment's slot (e*cap: a zero row where it dropped),
-    # a token's k slots summed in ascending slot order
+    # each assignment's slot (e*cap: a zero row where it dropped), a
+    # token's k slots in ascending slot order
     slot_of = torch.empty(t * k, dtype=torch.int64, device=dev)
     slot_of[order] = slot
     slots = torch.sort(slot_of.reshape(t, k), dim=-1).values
-    yp = torch.cat([y_flat, torch.zeros((1, d), dtype=y_flat.dtype, device=dev)])
+    return token_of, gate_of, slots
+
+
+def _gather_rows(xf, token_of, shape):
+    """The rows ``token_of`` of ``xf`` with a zero row after the last."""
+    xp = torch.cat([xf, torch.zeros((1, xf.shape[1]), dtype=xf.dtype, device=xf.device)],
+                   dim=0)
+    return xp[token_of].reshape(shape)
+
+
+def _combine(y_e, gate_of, slots, k: int):
+    """Each token's k gated expert rows, summed in ascending slot order
+    (the order of the reference's scatter-add)."""
+    d = y_e.shape[-1]
+    y_flat = y_e.reshape(-1, d) * gate_of[:, None].to(y_e.dtype)
+    yp = torch.cat([y_flat, torch.zeros((1, d), dtype=y_flat.dtype, device=y_flat.device)])
     parts = yp[slots]  # (T, k, D)
     y = parts[:, 0]
     for j in range(1, k):
         y = y + parts[:, j]
-    y = y.reshape(b, s, d)
-
-    if dense_residual:
-        y = y + L.mlp_apply(params.dense, x, "silu")
-    return y.to(x.dtype), aux
+    return y

@@ -142,10 +142,12 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int, h0=None):
 def ssd_step(h, x_t, dt_t, a, b_t, c_t):
     """Single-token recurrence: h (B,H,N,P); x_t (B,H,P); dt_t (B,H);
     b_t/c_t (B,N). Returns (y_t (B,H,P), h')."""
+    # in f32 as the reference's einsums promote a bf16 operand beside the
+    # f32 step sizes and state (no-ops at f32)
     g = torch.exp(a[None, :] * dt_t)  # (B,H)
-    upd = torch.einsum("bh,bn,bhp->bhnp", dt_t, b_t, x_t)
+    upd = torch.einsum("bh,bn,bhp->bhnp", dt_t, b_t.float(), x_t.float())
     h_new = g[:, :, None, None] * h + upd
-    y = torch.einsum("bn,bhnp->bhp", c_t, h_new)
+    y = torch.einsum("bn,bhnp->bhp", c_t.float(), h_new)
     return y, h_new
 
 
@@ -158,11 +160,15 @@ def ssm_block(params, x, cfg, h0=None):
     """Full Mamba2 block over a sequence. x: (B,S,D) → ((B,S,D), h_final)."""
     d_inner, d_state, n_heads = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     p_head = cfg.ssm_head_dim
-    proj = torch.matmul(x, params.in_proj)
+    proj = L.linear(x, params.in_proj)
     z, xin, b_mat, c_mat, dt = _split_proj(proj, d_inner, d_state, n_heads)
 
     conv_in = torch.cat([xin, b_mat, c_mat], dim=-1)
-    conv_out = F.silu(_causal_conv(conv_in, params.conv_w, params.conv_b))
+    rows = (L.batch_axes(x.shape[0], x), None, None) if L.is_dtensor(x) else ()
+    conv_out = F.silu(L.on_shards(_causal_conv, rows, (rows, (None, None), (None,)),
+                                  conv_in, params.conv_w, params.conv_b,
+                                  note="ssm: causal conv and chunked scan on each rank's "
+                                       "batch rows (local_map)"))
     xin = conv_out[..., :d_inner]
     b_mat = conv_out[..., d_inner : d_inner + d_state]
     c_mat = conv_out[..., d_inner + d_state :]
@@ -170,18 +176,27 @@ def ssm_block(params, x, cfg, h0=None):
     dtp = F.softplus(dt.float() + params.dt_bias)
     a = -torch.exp(params.a_log)
     xh = xin.reshape(*xin.shape[:2], n_heads, p_head)
-    y, h_fin = ssd_chunked(xh, dtp, a, b_mat, c_mat, cfg.ssm_chunk, h0)
+    if rows:
+        dp = rows[0]
+        y, h_fin = L.on_shards(
+            lambda x, dt, a, b, c, h0: ssd_chunked(x, dt, a, b, c, cfg.ssm_chunk, h0),
+            [(dp, None, None, None), (dp, None, None, None)],
+            ((dp, None, None, None), (dp, None, None), (None,), (dp, None, None),
+             (dp, None, None), (dp, None, None, None)),
+            xh, dtp, a, b_mat, c_mat, h0)
+    else:
+        y, h_fin = ssd_chunked(xh, dtp, a, b_mat, c_mat, cfg.ssm_chunk, h0)
     y = y + params.d_skip[None, None, :, None].to(y.dtype) * xh
     y = y.reshape(*x.shape[:2], d_inner)
     y = L.rmsnorm(params.norm, y * F.silu(z), cfg.norm_eps)
-    return torch.matmul(y, params.out_proj), h_fin
+    return L.linear(y, params.out_proj), h_fin
 
 
 def ssm_decode_step(params, x, state: SSMState, cfg):
     """One-token Mamba2 step. x: (B,1,D) → ((B,1,D), new state)."""
     d_inner, d_state, n_heads = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     p_head = cfg.ssm_head_dim
-    proj = torch.matmul(x, params.in_proj)[:, 0]
+    proj = L.linear(x, params.in_proj)[:, 0]
     z, xin, b_mat, c_mat, dt = _split_proj(proj, d_inner, d_state, n_heads)
 
     conv_in = torch.cat([xin, b_mat, c_mat], dim=-1)  # (B,C)
@@ -199,5 +214,5 @@ def ssm_decode_step(params, x, state: SSMState, cfg):
     y = y + params.d_skip[None, :, None].to(y.dtype) * xh
     y = y.reshape(-1, 1, d_inner).to(x.dtype)  # f32 SSD state → act dtype
     y = L.rmsnorm(params.norm, y * F.silu(z)[:, None, :], cfg.norm_eps)
-    out = torch.matmul(y, params.out_proj)
+    out = L.linear(y, params.out_proj)
     return out.to(x.dtype), SSMState(h=h_new, conv=hist[:, 1:, :])

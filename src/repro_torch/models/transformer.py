@@ -12,8 +12,14 @@ plain Python over the static ``cfg.layer_windows()`` and
 
 Rematerialisation is here: ``forward(..., remat=True)`` wraps each layer's
 body in ``torch.utils.checkpoint`` under the policy ``set_remat_policy``
-picks, with the reference's four names. The dry-run's knobs
-(``set_layer_unroll``, ``set_seq_parallel``) come with the sharding slice.
+picks, with the reference's four names.
+
+The dry-run's knobs: ``set_seq_parallel`` shards the residual stream's
+sequence axis over `model` between blocks (a shard hint, a no-op on one
+device); ``set_layer_unroll`` is accepted and recorded for the reference's
+CLI, and changes nothing here: the reference unrolls its layer scan so
+that XLA's cost analysis counts the body more than once, and a Python loop
+over layers runs, and is counted, layer by layer already.
 """
 
 from __future__ import annotations
@@ -49,6 +55,32 @@ def reference_leaf(name: str) -> str:
     if top in STACKED:
         return f"{top}.{rest.partition('.')[2]}"
     return name
+
+
+# ------------------------------------------------------------- dry-run knobs --
+_LAYER_UNROLL = 1
+_SEQ_PARALLEL = False  # shard the residual stream's seq axis over `model`
+
+
+def set_layer_unroll(n: int) -> None:
+    """Recorded only: a Python loop over layers has nothing to unroll."""
+    global _LAYER_UNROLL
+    _LAYER_UNROLL = max(1, int(n))
+
+
+def set_seq_parallel(on: bool) -> None:
+    global _SEQ_PARALLEL
+    _SEQ_PARALLEL = bool(on)
+
+
+def _residual_hint(x):
+    """Megatron-style sequence parallelism: between blocks the residual
+    stream is sharded over `model` on the sequence axis, so the all-reduce
+    after a row-parallel product becomes a reduce-scatter and an
+    all-gather."""
+    if _SEQ_PARALLEL:
+        return L.shard_hint(x, L.DP, "model", None)
+    return L.shard_hint(x, L.DP, None, None)
 
 
 # ------------------------------------------------------------------ remat --
@@ -248,6 +280,7 @@ def _attn_stack(params, x, cfg: ModelConfig, *, enc_out=None, positions=None,
                                  positions=positions, enc_out=enc_out,
                                  return_kv=collect_kv)
         x, a, kv = _maybe_remat(body, remat and not collect_kv)(x)
+        x = _residual_hint(x)
         if a is not None:
             aux = aux + a
         kvs.append(kv)
@@ -313,10 +346,14 @@ def encoder_forward(params, frames, cfg: ModelConfig):
     return L.rmsnorm(params.enc_norm, x, cfg.norm_eps)
 
 
-def embed_inputs(params, batch, cfg: ModelConfig):
+def embed_inputs(params, batch, cfg: ModelConfig, hint: bool = False):
     """Token embeddings in the activation dtype, with a VLM's patches
-    prepended, and an audio model's encoder output: (x, enc_out)."""
+    prepended, and an audio model's encoder output: (x, enc_out). ``hint``:
+    the token embeddings are hinted to the batch axes, as the training
+    forward does."""
     x = L.embed(params.embed, batch["tokens"]).to(cfg.cdtype)
+    if hint:
+        x = L.shard_hint(x, L.DP, None, None)
     enc_out = None
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(cfg.cdtype), x], dim=1)
@@ -326,8 +363,23 @@ def embed_inputs(params, batch, cfg: ModelConfig):
 
 
 def logits_of(params, h, cfg: ModelConfig):
-    """(B, S, V) logits of the final-norm output, in the activation dtype."""
-    return torch.matmul(h, params.unembed_table(cfg).to(h.dtype).t())
+    """(B, S, V) logits of the final-norm output, in the activation dtype.
+    On DTensors a column-parallel product on each rank's shards (the
+    vocabulary over `model` where the table is so placed): DTensor's own
+    flattens a batch split over two mesh axes with the sequence, which it
+    cannot propagate on the multi-pod mesh."""
+    table = params.unembed_table(cfg)
+
+    def product(h, table):
+        return torch.matmul(h, table.to(h.dtype).t())
+
+    if not L.is_dtensor(table):
+        return product(h, table)
+    vocab = "model" if "model" in L.split_axes(table, 0) else None
+    dp = L.batch_axes(h.shape[0], table)
+    return L.on_shards(product, (dp, None, vocab), ((dp, None, None), (vocab, None)), h, table,
+                       note="logits: a column-parallel product on each rank's shards "
+                            "(local_map)")
 
 
 def forward(params, batch, cfg: ModelConfig, *, remat: bool = False):
@@ -339,7 +391,7 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = False):
       vlm:   {"patches": (B,P,D)} — prepended to the token embeddings
       audio: {"frames": (B,T,D)} — encoder input (stub conv frontend)
     """
-    x, enc_out = embed_inputs(params, batch, cfg)
+    x, enc_out = embed_inputs(params, batch, cfg, hint=True)
     if cfg.family in ("ssm", "hybrid"):
         out = _ssm_stack(params, x, cfg, remat=remat)
     else:
@@ -348,4 +400,5 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = False):
     h = L.rmsnorm(params.final_norm, out.x, cfg.norm_eps)
     if cfg.family == "vlm":  # only text positions produce logits
         h = h[:, batch["patches"].shape[1]:, :]
-    return logits_of(params, h, cfg), out.aux_loss
+    logits = L.shard_hint(logits_of(params, h, cfg), L.DP, None, "model")
+    return logits, out.aux_loss

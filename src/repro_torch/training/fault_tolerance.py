@@ -6,9 +6,10 @@
      command" loop contract. The data pipeline is a pure function of step,
      so a restart replays no data and skips none.
 
-  2. re-placement        — `reshard_state`: put host (or another device's)
-     state on one device. Checkpoints are stored unsharded, so this is a
-     copy; placements sharded over a mesh come with the sharding slice.
+  2. re-placement        — `reshard_state`: put a state on one device, or
+     shard it over a ``DeviceMesh`` as `launch.sharding.params_shardings`
+     says (from one device, or from a sharding on another mesh: the
+     elastic re-mesh). Checkpoints are stored unsharded.
 
   3. straggler detection — `HeartbeatMonitor` flags stalled steps and can
      trigger checkpoint-and-restart rather than waiting.
@@ -27,6 +28,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from repro_torch.models.layers import is_dtensor
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.optimizer import AdamWState
 
@@ -40,23 +42,64 @@ def resume_or_init(ckpt: Optional[CheckpointManager], init_fn: Callable[[], obje
     return 0, init_fn(), False
 
 
-def reshard_state(state, device):
-    """Place a state (its modules, mappings, named tuples and tensors) on
-    ``device``, its structure kept: a module moves in place (``Module.to``),
-    a tensor elsewhere is copied there. The optimizer's step counter stays
-    on the host."""
-    device = torch.device(device)
+def _to_device(x, device):
+    """A tensor on ``device``; a DTensor is gathered whole first."""
+    if is_dtensor(x):
+        x = x.full_tensor()
+    return x.to(device)
 
-    def place(x):
+
+def _to_sharding(x, sharding):
+    """A tensor placed as ``sharding`` (a `launch.sharding.Sharding`): a
+    DTensor on the same mesh is redistributed, one on another mesh is
+    gathered whole and placed afresh, a plain tensor is distributed."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if is_dtensor(x):
+        if x.device_mesh == sharding.mesh:
+            return x.redistribute(sharding.mesh, sharding.placements)
+        x = x.full_tensor()
+    return distribute_tensor(x, sharding.mesh, sharding.placements)
+
+
+def reshard_state(state, target):
+    """Place a state (its modules, mappings, named tuples and tensors),
+    its structure kept, on ``target``: a device, or a sharding,
+    ``{parameter name: Sharding}`` as `launch.sharding.params_shardings`
+    returns it. A module is changed in place (each parameter replaced);
+    a mapping's tensors (an `AdamWState`'s moments: by parameter name) and
+    a named tuple's (a `DecodeState`'s: by field) are looked up by their
+    keys; other tensors go to the target device, or, under a sharding,
+    stay where they are. The optimizer's
+    step counter stays on the host. A sharded state comes back to one
+    device whole (``full_tensor``)."""
+    if isinstance(target, Mapping):
+        def put(name, x):
+            return x if name not in target else _to_sharding(x, target[name])
+    else:
+        device = torch.device(target)
+
+        def put(name, x):
+            return _to_device(x, device)
+
+    def place(x, name=None):
         if isinstance(x, nn.Module):
-            return x.to(device)
-        if isinstance(x, Mapping):
-            return {k: place(v) for k, v in x.items()}
+            for full, p in list(x.named_parameters()):
+                mod_name, _, leaf = full.rpartition(".")
+                mod = x.get_submodule(mod_name)
+                with torch.no_grad():
+                    mod._parameters[leaf] = nn.Parameter(
+                        put(full, p.detach()), requires_grad=p.requires_grad)
+            return x
         if isinstance(x, AdamWState):
             return AdamWState(step=x.step, mu=place(x.mu), nu=place(x.nu))
+        if isinstance(x, Mapping):
+            return {k: place(v, k) for k, v in x.items()}
         if hasattr(x, "_fields"):
-            return type(x)(*(place(v) for v in x))
-        return None if x is None else x.to(device)
+            return type(x)(*(place(v, f) for f, v in zip(x._fields, x)))
+        if not isinstance(x, torch.Tensor):
+            return x  # None, a host count
+        return put(name, x)
 
     return place(state)
 

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import LM, reference_leaf
 from repro_torch.training import optimizer as opt
@@ -59,14 +60,32 @@ def cross_entropy(logits, labels, z_loss: float = 0.0):
     mask = (labels >= 0).float()
     labels = labels.clamp(min=0).long()
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    if L.is_dtensor(lf):
+        logz, gold = _sharded_logz_gold(lf, labels)
+    else:
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels[..., None])[..., 0]
     ce = (logz - gold) * mask
     total = torch.clamp(mask.sum(), min=1.0)
     loss = ce.sum() / total
     if z_loss:
         loss = loss + z_loss * torch.sum((logz * mask) ** 2) / total
     return loss
+
+
+def _sharded_logz_gold(lf, labels):
+    """logsumexp and the gold logit of vocab-sharded DTensor logits, as a
+    vocab-parallel loss computes them: the max and the sum of exponentials
+    reduce over `model` as partial values (DTensor's own logsumexp would
+    gather the whole vocabulary first), and the gold logit is gathered
+    shard by shard and summed while it still has its last axis (DTensor
+    cannot reduce the masked partial after that axis is dropped)."""
+    L.SHARD_NOTES.add("cross-entropy: vocab-parallel logsumexp; the gold logit "
+                      "reduced over model before its last axis is dropped")
+    m = lf.detach().amax(dim=-1, keepdim=True)
+    logz = (m + torch.log(torch.exp(lf - m).sum(dim=-1, keepdim=True)))[..., 0]
+    gold = L.resolve_partial(torch.gather(lf, -1, labels[..., None]))[..., 0]
+    return logz, gold
 
 
 def loss_fn(params, batch, model: Model, tcfg: TrainConfig):
