@@ -106,8 +106,22 @@ runs these phases, each printing one line, failing on the first fault:
     bitwise equal to the one-device forward, and ``reshard_state`` back to
     the card alone bitwise; (c) with two cards, the (1, 2) → (2, 1) re-mesh
     over NCCL, forwards within 1e-5;
+25. the port's invariants and the last pieces of its API: (a) reprolint
+    (``python -m repro_torch.analysis src/repro_torch --format json``) in
+    a subprocess, 0 findings, the suppressions counted by rule; (b) the
+    service's bucket graphs keyed on the tuning state, at N = 12 in the
+    128-row bucket: a graph captured with tuning off, a second captured
+    under an ``expectation`` tile of 256 (which orders ⟨cut⟩'s and ∂γ's
+    reductions), each graphed solve bitwise equal to the eager
+    ``solve_subgraph_batch`` under the same state, the first graph's
+    replay still the tuning-off solve; whether the two tuning states
+    gave other bits, printed as a finding; (c) the ``cutvals`` /
+    ``cutvals_at`` backward on the card against its closed form in
+    float64 on the CPU at n = 12; (d)
+    ``qaoa.solve_subgraph`` on the card bitwise equal to row 0 of the
+    batch;
 
-Phases 21a-f, 22a-c, 23a-d and 24 run right after phase 1, before the first
+Phases 21a-f, 22a-c, 23a-d, 24 and 25 run right after phase 1, before the first
 profiler trace (21g); then one JSON line of per-kernel numbers (``launches`` from phase 4's
 solve, ``service_launches`` from 21b's drain), the nvidia-smi line, and
 ``{"ok": true, ...}`` as the last line. It exits non-zero, printing no
@@ -116,6 +130,7 @@ result, where CUDA is missing or the package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -191,6 +206,11 @@ print(json.dumps({"per_rank_fraction": frac}))
 PLACE_ARCHS = ("qwen1.5-0.5b", "mamba2-1.3b")
 PLACE_BATCH, PLACE_SEQ = 4, 128
 REMESH_ATOL = 1e-5  # 24c: the reference's re-mesh tolerance
+# phase 25: the tile the tuned graphs take for ⟨cut⟩ and ∂γ at n = 12 (16
+# partials a row where the default takes the whole row in one), and the
+# cutvals backward's tolerance, card against CPU, on a positive cotangent
+KEY_TILE = 256
+CUTVALS_GRAD_RTOL = 1e-5
 CPU_BAND = 0.02  # of Σ|w|: the default-steps band of tests/test_torch_core.py
 TIE_RTOL = 1e-6  # marginals this close count as a tie the last ulp may break
 
@@ -2699,6 +2719,169 @@ def train_profile_phase(torch, s23) -> None:
                       for ev in top))
 
 
+def lint_phase(root: str, smi: str) -> None:
+    """Phase 25a: reprolint over the port in a subprocess: exit 0, no
+    finding, the inline suppressions counted by rule."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "src/repro_torch", "--format",
+         "json"], cwd=root, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")))
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"reprolint exit {proc.returncode}:\n{proc.stdout[-4000:]}"
+          f"\n{proc.stderr[-4000:]}")
+    rep = json.loads(proc.stdout)
+    check(rep["findings"] == [] and rep["baselined"] == 0,
+          f"reprolint findings: {rep['findings']}")
+    print(f"[25a reprolint] {rep['files']} files of src/repro_torch, 0 findings, 0 "
+          f"baselined, {rep['suppressed']} suppressed inline by rule "
+          f"{json.dumps(rep['suppressed_by_rule'], sort_keys=True)} in {wall:.3f} s "
+          f"of command | {smi}")
+
+
+def graph_key_phase(torch, dev, smi: str) -> None:
+    """Phase 25b: a bucket graph is never replayed under another tuning
+    state. The graphs the service holds are set aside for the phase and
+    put back after it."""
+    from repro_torch.core import qaoa as qaoa_mod
+    from repro_torch.core.partition import partition_for_solver
+    from repro_torch.kernels import tuning
+    from repro_torch.service import backend as backend_mod
+    from repro_torch.service import edge_capacity
+
+    graphs, _ = service_mix()
+    subs = [s for g in graphs for s in partition_for_solver(g, SVC_QUBITS).subgraphs]
+    edges, weights, masks = qaoa_mod.pad_subgraph_arrays(
+        subs[:SVC_SLOTS], SVC_QUBITS, e_pad=edge_capacity(SVC_QUBITS), n_rows=SVC_SLOTS,
+        device=dev)
+    masks = masks.numpy()
+    cfg = qaoa_mod.QAOAConfig(n_qubits=SVC_QUBITS, top_k=SVC_KNOBS[1],
+                              opt_steps=SVC_KNOBS[2])
+    table = {tuning.cache_key("expectation", 2**SVC_QUBITS): {"tile": KEY_TILE}}
+    fields = qaoa_mod.QAOAResult._fields
+
+    def graphed(tuned: bool):
+        """(graphed result, eager result, captured?) under the state."""
+        before = backend_mod.graph_count()
+        with (tuning.using_overrides(table) if tuned else contextlib.nullcontext()):
+            got = backend_mod.solve_graphed(cfg, edges, weights, masks)
+            want = qaoa_mod.solve_subgraph_batch(edges, weights, masks, cfg)
+        torch.cuda.synchronize()
+        return got, want, backend_mod.graph_count() - before
+
+    saved = dict(backend_mod._GRAPHS)
+    backend_mod._GRAPHS.clear()
+    try:
+        t0 = time.perf_counter()
+        off, off_eager, made_off = graphed(False)
+        on, on_eager, made_on = graphed(True)
+        again, _, made_again = graphed(False)
+        wall = time.perf_counter() - t0
+        check((made_off, made_on, made_again) == (1, 1, 0),
+              f"graphs captured (off, tuned, off again) = "
+              f"{(made_off, made_on, made_again)}, expected (1, 1, 0)")
+        for label, got, want in (("tuning off", off, off_eager),
+                                 (f"tile {KEY_TILE}", on, on_eager),
+                                 ("tuning off, replayed after", again, off_eager)):
+            bad = [f for f, x, y in zip(fields, got, want) if not torch.equal(x, y)]
+            check(not bad, f"graphed solve ({label}) differs from the eager solve "
+                  f"under the same state in {bad}")
+        check(backend_mod.graph_count() == 2, f"{backend_mod.graph_count()} graphs, "
+              "expected 2 (one a tuning state)")
+    finally:
+        backend_mod.clear_graphs()
+        backend_mod._GRAPHS.update(saved)
+    moved = [f for f, x, y in zip(fields, off, on) if not torch.equal(x, y)]
+    rows = int((off.bitstrings != on.bitstrings).any(1).sum())
+    d_exp = float((off.expectation - on.expectation).abs().max())
+    print(f"[25b graph keys] N = {SVC_QUBITS}, {SVC_SLOTS} rows, T = {cfg.opt_steps}: 2 "
+          f"graphs, each graphed solve bitwise = eager, the first replayed after the "
+          f"second = the tuning-off solve; tile {KEY_TILE} moved "
+          f"{moved if moved else 'no field'} (top-K bits of {rows} of {SVC_SLOTS} rows, "
+          f"max |d<cut>| {d_exp:.3e}) ({wall:.3f} s) | {smi}")
+    del edges, weights
+
+
+def api_phase(torch, dev, smi: str) -> None:
+    """Phase 25c-d: the cutvals / cutvals_at backward on the card against
+    its closed form in float64 on the CPU, and `qaoa.solve_subgraph`
+    against row 0 of the batch on the card."""
+    from repro_torch.core import qaoa as qaoa_mod
+    from repro_torch.core.partition import partition_for_solver
+    from repro_torch.kernels import ops
+    from repro_torch.service import edge_capacity
+
+    n, rows = SVC_QUBITS, 8
+    graphs, _ = service_mix()
+    subs = [s for g in graphs for s in partition_for_solver(g, n).subgraphs][:rows]
+    edges, weights, masks = qaoa_mod.pad_subgraph_arrays(subs, n, e_pad=edge_capacity(n))
+    rng = np.random.default_rng(25)
+    lin = torch.as_tensor(rng.standard_normal((rows, n), dtype=np.float32))
+    g_full = torch.as_tensor(rng.uniform(0.1, 1.0, (rows, 2**n)).astype(np.float32))
+    idx = torch.as_tensor(rng.integers(0, 2**n, (4, 1024)).astype(np.int32))
+    g_at = torch.as_tensor(rng.uniform(0.1, 1.0, (rows * 4, 1024)).astype(np.float32))
+
+    def leaf(t, device):
+        """A fresh leaf on ``device`` (``.to`` of a CPU tensor to the CPU
+        is the tensor itself, whose gradient the next call would add to)."""
+        return t.to(device).clone().requires_grad_(True)
+
+    def grads(device):
+        w, h = leaf(weights, device), leaf(lin, device)
+        ops.cutvals(n, edges.to(device), w, h).backward(g_full.to(device))
+        w_at, h_at = leaf(weights, device), leaf(lin, device)
+        ops.cutvals_at(idx.to(device), edges.to(device), w_at, h_at,
+                       n_bits=n).backward(g_at.to(device))
+        return [t.grad.cpu() for t in (w, h, w_at, h_at)]
+
+    def closed_form(states, g):
+        """(∂w, ∂h) in float64 on the CPU: ∂w_e = Σ_x g[x]·xor_e(x) and
+        ∂h_v = Σ_x g[x]·bit_v(x), one row at a time."""
+        x = states.reshape(-1).to(torch.int64)
+        g = g.reshape(rows, -1).to(torch.float64)
+        d_w, d_h = [], []
+        for b in range(rows):
+            e = edges[b].to(torch.int64)
+            crossed = ((x >> e[:, :1]) ^ (x >> e[:, 1:])) & 1
+            d_w.append(crossed.to(torch.float64) @ g[b])
+            bits = (x >> torch.arange(n)[:, None]) & 1
+            d_h.append(bits.to(torch.float64) @ g[b])
+        return [torch.stack(d_w), torch.stack(d_h)]
+
+    ops.reset_launch_counts()
+    card = grads(dev)
+    counts = ops.launch_counts()
+    check(counts["cutvals"] == 1 and counts["cutvals_at"] == 1,
+          f"the forward did not launch the kernels: {counts}")
+    exact = (closed_form(torch.arange(2**n, dtype=torch.int32), g_full)
+             + closed_form(idx, g_at))
+    errs = []
+    for name, got, want in zip(("d_w", "d_lin", "d_w at", "d_lin at"), card, exact):
+        got = got.to(torch.float64)
+        live = want != 0  # a padded edge row (u = v) crosses nowhere
+        check(bool((got[~live] == 0).all()), f"cutvals backward {name}: a padded "
+              "row's gradient is not 0")
+        rel = float(((got - want).abs()[live] / want.abs()[live]).max())
+        errs.append(f"{name} {rel:.3e}")
+        check(rel <= CUTVALS_GRAD_RTOL, f"cutvals backward {name}: card against the "
+              f"float64 closed form max rel {rel:.3e} > {CUTVALS_GRAD_RTOL}")
+    print(f"[25c cutvals backward] n = {n}, {rows} rows, cutvals_at on (4, 1024) "
+          f"indices, card against the float64 closed form on the CPU max rel err "
+          f"{', '.join(errs)} (rtol {CUTVALS_GRAD_RTOL}, positive cotangent) | {smi}")
+
+    cfg = qaoa_mod.QAOAConfig(n_qubits=n, top_k=SVC_KNOBS[1], opt_steps=SVC_KNOBS[2])
+    e_dev, w_dev = edges.to(dev), weights.to(dev)
+    batch = qaoa_mod.solve_subgraph_batch(e_dev, w_dev, masks, cfg)
+    one = qaoa_mod.solve_subgraph(e_dev[0], w_dev[0], int(masks[0]), cfg)
+    torch.cuda.synchronize()
+    bad = [f for f, x, y in zip(qaoa_mod.QAOAResult._fields, one, batch)
+           if not torch.equal(x, y[0])]
+    check(not bad, f"solve_subgraph differs from row 0 of the batch in {bad}")
+    print(f"[25d solve_subgraph] N = {n}, T = {cfg.opt_steps}: every field bitwise equal "
+          f"to row 0 of a {rows}-row batch, bits {one.bitstrings.tolist()}, <cut> "
+          f"{float(one.expectation)!r} | {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -2756,6 +2939,10 @@ def main() -> int:
     dryrun_phase(root)
     placement_phase(torch, dev, smi)
     remesh_phase(torch, root)
+    # ---- 25. reprolint, the graph keys and the last API pieces ---------------
+    lint_phase(root, smi)
+    graph_key_phase(torch, dev, smi)
+    api_phase(torch, dev, smi)
 
     service_profile_phase(torch, s21)
     del s21["svc"]

@@ -32,7 +32,9 @@ from repro_torch.core.graph import (Graph, Problem, cut_value,
 from repro_torch.core.partition import (connectivity_preserving_partition,
                                         partition_for_solver)
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
+# the harness's whole job is comparing impls against the reference
+from repro_torch.kernels import ref  # reprolint: disable=dispatch-purity
 
 
 def check_solve_pool(dev):

@@ -136,6 +136,25 @@ def solve_subgraph_batch(edges, weights, real_mask, cfg: QAOAConfig,
     return QAOAResult(bits, probs, exp, gammas, betas)
 
 
+def solve_subgraph(edges, weights, real_mask, cfg: QAOAConfig,
+                   linear=None) -> QAOAResult:
+    """End-to-end QAOA solve of one padded subgraph: edges (E, 2) int32,
+    weights (E,) f32, ``linear`` (n_qubits,) f32 or None, real_mask
+    2^n_real − 1 on the host. The batch of one: row 0 of
+    `solve_subgraph_batch`, whose rows do not depend on their batch, with
+    the batch axis dropped from every field."""
+    masks = np.asarray(real_mask, dtype=np.int64).reshape(1)
+    res = solve_subgraph_batch(edges[None], weights[None], masks, cfg,
+                               linear=None if linear is None else linear[None])
+    return QAOAResult(*(t[0] for t in res))
+
+
+def index_to_bits(indices: torch.Tensor, n: int) -> torch.Tensor:
+    """(...,) int32 basis indices → (..., n) int8 bits (bit q = vertex q)."""
+    shifts = torch.arange(n, dtype=indices.dtype, device=indices.device)
+    return ((indices[..., None] >> shifts) & 1).to(torch.int8)
+
+
 def solve_batch_on_device(edges, weights, cfg: QAOAConfig, linear=None):
     """The part of `solve_subgraph_batch` that needs nothing from the host:
     the cost diagonal, the Adam ascent, the final evolution and ⟨cut⟩.

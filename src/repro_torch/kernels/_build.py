@@ -187,7 +187,8 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 
 
-def require(t, name: str, dtype, shape: tuple, device) -> None:
+def require(t, name: str, dtype: "torch.dtype", shape: tuple,
+            device: "torch.device") -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``: what every kernel takes as given."""
     if t.device != device:

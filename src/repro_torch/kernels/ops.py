@@ -23,8 +23,14 @@ same kernels at negated angles:
 - `apply_phase` (``_phase_vjp``, ops.py:238-273): the same kernel at −γ
   on the cotangent, then ∂γ and ∂cutv in closed form.
 
-`cutvals`, `cutvals_at` and `cut_batch_dense` are forward only: no path
-differentiates them (as in the reference).
+- `cutvals` and `cutvals_at` (``_cutvals_bwd``, ``_cutvals_at_bwd``,
+  ops.py:127-214): the objective is linear in the weights and the linear
+  terms, so ∂w_e = Σ_x g[x]·xor_e(x) and ∂h_v = Σ_x g[x]·bit_v(x). The
+  forward is the kernel; the backward is plain PyTorch (the reference
+  leaves it to XLA), a slab of edges at a time, so that no (B, E, 2^n)
+  tensor is built.
+
+`cut_batch_dense` is forward only, as in the reference.
 
 Every entry point records its dispatch in the build ledger
 (`obs.ledger`, ``note_op``): ``cuda`` where its kernel launches, ``plain``
@@ -35,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, betagrad, cutbatch, fused_layer, mixer, phase
+from repro_torch.kernels import _build, betagrad, cutbatch, fused_layer, mixer, phase, ref
 from repro_torch.kernels import cutvals as cutvals_mod
 from repro_torch.obs.ledger import get_ledger
 
@@ -63,23 +69,100 @@ def reset_launch_counts() -> None:
     _build.reset_launches()
 
 
+def set_aside_launches():
+    """A context whose Counter holds, when it ends, the launches counted
+    inside it, taken back out of the counts (a capture into a CUDA graph
+    launches nothing)."""
+    return _build.set_aside_launches()
+
+
+def add_launches(counts) -> None:
+    """Count launches made outside a wrapper's call (a graph's replay)."""
+    _build.add_launches(counts)
+
+
 def _note(op: str, x) -> None:
     """One dispatch of ``op`` on ``x``'s device, in the build ledger."""
     get_ledger().note_op(op, "cuda" if x.is_cuda else "plain")
 
 
+# elements of one (B, edges, states) slab of the cutvals backward
+GRAD_SLAB = 1 << 22
+
+
+def _masked_sums(g, idx, lo, hi):
+    """(B, m): Σ_x g[b, x]·(((idx[x] >> lo[b, j]) ^ (idx[x] >> hi[b, j])) & 1)
+    for g (B, X) f32, idx (X,) int32 and lo, hi (B, m) int32, over slabs of
+    the m columns so that no (B, m, X) tensor is built."""
+    b, m = lo.shape
+    out = torch.empty((b, m), dtype=torch.float32, device=g.device)
+    step = max(1, GRAD_SLAB // max(1, b * idx.numel()))
+    for c0 in range(0, m, step):
+        i = lo[:, c0:c0 + step, None]
+        j = hi[:, c0:c0 + step, None]
+        crossed = ((idx >> i) ^ (idx >> j)) & 1
+        out[:, c0:c0 + step] = (g[:, None, :] * crossed.to(torch.float32)).sum(-1)
+    return out
+
+
+def _cutvals_grads(ctx, idx, edges, g):
+    """(∂weights (B, E), ∂linear (B, n_lin)) of Σ_x g[b, x]·c_b(idx[x]),
+    each None where autograd does not ask for it (inputs 2 and 3 of both
+    Functions): an edge row crosses where its endpoints' bits differ, a
+    linear term counts where its bit is set (bit v XOR the virtual bit,
+    always 0)."""
+    d_w = d_lin = None
+    if ctx.needs_input_grad[2]:
+        d_w = _masked_sums(g, idx, edges[..., 0], edges[..., 1])
+    if ctx.n_lin and ctx.needs_input_grad[3]:
+        v = torch.arange(ctx.n_lin, dtype=torch.int32, device=g.device)
+        v = v.expand(g.shape[0], ctx.n_lin)
+        d_lin = _masked_sums(g, idx, v, torch.full_like(v, ref.VIRTUAL_BIT))
+    return d_w, d_lin
+
+
+class _Cutvals(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, n, edges, weights, linear):
+        ctx.save_for_backward(edges)
+        ctx.n, ctx.n_lin = n, 0 if linear is None else linear.shape[1]
+        return cutvals_mod.cutvals(n, edges, weights, linear)
+
+    @staticmethod
+    def backward(ctx, g):
+        (edges,) = ctx.saved_tensors
+        idx = torch.arange(2**ctx.n, dtype=torch.int32, device=g.device)
+        return None, None, *_cutvals_grads(ctx, idx, edges, g.contiguous())
+
+
+class _CutvalsAt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, idx, edges, weights, linear, n_bits):
+        ctx.save_for_backward(idx, edges)
+        ctx.n_lin = 0 if linear is None else linear.shape[1]
+        return cutvals_mod.cutvals_at(idx, edges, weights, linear, n_bits=n_bits)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, edges = ctx.saved_tensors
+        g = g.reshape(edges.shape[0], -1)  # row b·S + s → row b, states s·L + l
+        return None, None, *_cutvals_grads(ctx, idx.reshape(-1), edges, g), None
+
+
 def cutvals(n: int, edges, weights, linear=None):
-    """(B, 2^n) objective values; ``linear`` (B, n) adds per-vertex terms."""
+    """(B, 2^n) objective values; ``linear`` (B, n) adds per-vertex terms.
+    Differentiable in ``weights`` and ``linear``."""
     _note("cutvals", edges)
-    return cutvals_mod.cutvals(n, edges, weights, linear)
+    return _Cutvals.apply(n, edges, weights, linear)
 
 
 def cutvals_at(idx, edges, weights, linear=None, *, n_bits=None):
     """(B·S, L) objective values of every edge row at the basis states of
     the (S, L) int32 table ``idx``; ``linear`` (B, n) adds per-vertex terms;
-    ``n_bits``: every index lies below 2^n_bits (None reads idx.max())."""
+    ``n_bits``: every index lies below 2^n_bits (None reads idx.max()).
+    Differentiable in ``weights`` and ``linear``."""
     _note("cutvals_at", idx)
-    return cutvals_mod.cutvals_at(idx, edges, weights, linear, n_bits=n_bits)
+    return _CutvalsAt.apply(idx, edges, weights, linear, n_bits)
 
 
 def cut_batch_dense(spins, adjacency, total_weight):

@@ -180,8 +180,11 @@ def rx_kron_parts(beta: torch.Tensor, k: int):
     cpow = torch.cumprod(torch.cat([ones, cb[:, None].expand(-1, k)], 1), 1)
     spow = torch.cumprod(torch.cat([ones, sb[:, None].expand(-1, k)], 1), 1)
     mag = cpow[:, k - d] * spow[:, d]  # (B, 2^k, 2^k)
-    rfac = torch.tensor([1.0, 0.0, -1.0, 0.0], device=beta.device)[d % 4]
-    ifac = torch.tensor([0.0, -1.0, 0.0, 1.0], device=beta.device)[d % 4]
+    # (-i)^d's parts by d mod 4, made on the device: a table copied up from
+    # the host would be a copy a CUDA graph capture refuses
+    m4 = d % 4
+    rfac = torch.where(m4 == 0, 1.0, torch.where(m4 == 2, -1.0, 0.0))
+    ifac = torch.where(m4 == 1, -1.0, torch.where(m4 == 3, 1.0, 0.0))
     return mag * rfac, mag * ifac
 
 
@@ -225,6 +228,26 @@ def phase_grad(re, im, g_re, g_im, cutv):
     """The phase rule's gamma cotangent, sum_x c (im g_re - re g_im) per
     row: (B,)."""
     return torch.sum(cutv * (im * g_re - re * g_im), dim=-1)
+
+
+def dense_qaoa_layer(psi: torch.Tensor, cutv: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, n: int) -> torch.Tensor:
+    """One QAOA layer through its dense 2^n × 2^n unitary: the oracle the
+    tests hold the layer against (n ≤ 8). psi (B, 2^n) complex64, cutv
+    (B, 2^n) f32, γ, β (B,); returns (B, 2^n) complex64. Qubit q is bit q,
+    so each later Kronecker factor is a higher bit."""
+    if n > 8:
+        raise ValueError(f"the dense oracle is for n <= 8, got {n}")
+    psi = torch.exp(-1j * gamma[:, None] * cutv.to(torch.complex64)) * psi
+    out = []
+    for row, b in zip(psi, beta):
+        c, s = torch.cos(b).to(torch.complex64), torch.sin(b).to(torch.complex64)
+        rx = torch.stack([torch.stack([c, -1j * s]), torch.stack([-1j * s, c])])
+        u = torch.ones((1, 1), dtype=torch.complex64, device=psi.device)
+        for _ in range(n):
+            u = torch.kron(rx, u)
+        out.append(u @ row)
+    return torch.stack(out)
 
 
 def cut_batch_dense(spins: torch.Tensor, adjacency: torch.Tensor, total_weight):

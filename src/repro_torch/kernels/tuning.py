@@ -13,10 +13,12 @@ table keyed per ``(op, shape bucket, backend)``:
   - an explicit override table (`using_overrides`, used by the sweep).
 
 The backend part of a key is the device type of the tensors the kernel
-runs on (``cuda`` or ``cpu``). PyTorch runs eagerly, so there is no
-traced program to key: a change of tuning state takes effect at the next
-launch. `state` and `using_state` keep the reference's API for code that
-captures the state and restores it later.
+runs on (``cuda`` or ``cpu``). An eager launch reads the state when it
+launches, so a change of state takes effect at the next launch. A CUDA
+graph is a captured program: it replays the geometry of its capture
+whatever the state is later. So a graph cache keys `state()` read at the
+call, and captures under `using_state` of that key, as the reference's
+compiled programs do (`service.backend._graph_key`).
 
 This module is also the sweep's measurement path: `measure` times calls
 through the injectable `repro_torch.obs.clock.default_clock`, and on the

@@ -135,7 +135,7 @@ def linear(x, w):
     return resolve_partial(y)
 
 
-def batch_axes(n: int, like):
+def batch_axes(n: int, like) -> tuple | None:
     """``DP`` where a batch of ``n`` splits evenly over the data axes of the
     DTensor ``like``'s mesh, else None (the batch replicated): a local
     computation's batch spec."""

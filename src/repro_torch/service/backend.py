@@ -23,7 +23,11 @@ counterpart of the reference's one compiled program a bucket: the part of
 `qaoa.solve_subgraph_batch` that needs nothing from the host
 (`qaoa.solve_batch_on_device`: the cost diagonal, every Adam step with its
 backward, the final evolution and ⟨cut⟩; 2,724 kernels at N = 12, T = 30)
-is captured once per bucket (`_graph_key`) and replayed. A dispatch is
+is captured once per bucket (`_graph_key`) and replayed. The key also
+holds the dispatch state a capture bakes in, the block-shape tuning state
+(`tuning.state()`), read at the call, and the capture runs under exactly
+that state, so a graph is never replayed under another one (the
+reference keys its compiled programs on it too). A dispatch is
 then a copy of its inputs into the graph's, one graph launch and copies
 of the outputs, all on the current stream, so it never waits behind a stall of
 the card for room in the launch queue, and stream order makes one graph
@@ -46,7 +50,7 @@ import torch
 
 from repro_torch.core import qaoa as qaoa_mod
 from repro_torch.device import resolve_device
-from repro_torch.kernels import _build
+from repro_torch.kernels import ops, tuning
 from repro_torch.obs.ledger import get_ledger
 
 # eager runs of a bucket on a side stream before its capture, as
@@ -68,12 +72,14 @@ _GRAPHS: dict = {}
 
 
 def _graph_key(qcfg: qaoa_mod.QAOAConfig, device, rows: int, e_pad: int,
-               linear: bool) -> tuple:
+               linear: bool, tune: tuple) -> tuple:
     """What fixes a bucket's graph: the device, rows, padded edges, linear
-    terms or none, and every knob of the device part (not ``top_k``)."""
+    terms or none, every knob of the device part (not ``top_k``), and the
+    tuning state that sets each launch's geometry, which the caller reads:
+    ``tune`` = `tuning.state()`."""
     return (str(device), rows, e_pad, linear, qcfg.n_qubits,
             qcfg.p_layers, qcfg.opt_steps, qcfg.learning_rate, qcfg.ramp_delta,
-            qcfg.mixer_group)
+            qcfg.mixer_group, tune)
 
 
 def graph_count() -> int:
@@ -86,24 +92,26 @@ def clear_graphs() -> None:
     _GRAPHS.clear()
 
 
-def _capture(qcfg, edges, weights, linears) -> _Graph:
+def _capture(qcfg, edges, weights, linears, tune: tuple) -> _Graph:
     """Warm up on a side stream, then capture `qaoa.solve_batch_on_device`
-    on static copies of the inputs. The launches and ledger notes made
-    while capturing ran nothing: they are set aside for each replay to
-    add."""
+    on static copies of the inputs, all under the keyed tuning state
+    ``tune``, so that the graph records no geometry its key does not
+    name. The launches and ledger notes made while capturing ran nothing:
+    they are set aside for each replay to add."""
     dev = edges.device
     inputs = tuple(None if t is None else t.clone() for t in (edges, weights, linears))
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        for _ in range(GRAPH_WARMUP):
-            qaoa_mod.solve_batch_on_device(*inputs[:2], qcfg, inputs[2])
-    torch.cuda.current_stream(dev).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with _build.set_aside_launches() as launched, get_ledger().set_aside_ops() as ops:
-        with torch.cuda.graph(graph):
-            outputs = qaoa_mod.solve_batch_on_device(*inputs[:2], qcfg, inputs[2])
-    return _Graph(graph, inputs, outputs, launched, ops)
+    with tuning.using_state(tune):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP):
+                qaoa_mod.solve_batch_on_device(*inputs[:2], qcfg, inputs[2])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with ops.set_aside_launches() as launched, get_ledger().set_aside_ops() as noted:
+            with torch.cuda.graph(graph):
+                outputs = qaoa_mod.solve_batch_on_device(*inputs[:2], qcfg, inputs[2])
+    return _Graph(graph, inputs, outputs, launched, noted)
 
 
 def solve_graphed(qcfg: qaoa_mod.QAOAConfig, edges, weights, masks,
@@ -111,15 +119,17 @@ def solve_graphed(qcfg: qaoa_mod.QAOAConfig, edges, weights, masks,
     """`qaoa.solve_subgraph_batch` on the card through the bucket's CUDA
     graph (captured first where it is not yet): the same kernels in the
     same order, so the same bits. ``masks`` on the host, as there."""
-    key = _graph_key(qcfg, edges.device, *edges.shape[:2], linears is not None)
+    tune = tuning.state()
+    key = _graph_key(qcfg, edges.device, *edges.shape[:2], linears is not None,
+                     tune)
     g = _GRAPHS.get(key)
     if g is None:
-        g = _GRAPHS[key] = _capture(qcfg, edges, weights, linears)
+        g = _GRAPHS[key] = _capture(qcfg, edges, weights, linears, tune)
     for static, t in zip(g.inputs, (edges, weights, linears)):
         if static is not None:
             static.copy_(t)
     g.graph.replay()
-    _build.add_launches(g.launches)
+    ops.add_launches(g.launches)
     get_ledger().add_ops(g.ops)
     gammas, betas, re, im, exp = g.outputs
     with torch.no_grad():
@@ -145,15 +155,16 @@ class LocalBackend:
         if self.device.type != "cuda":
             return 0
         made = 0
+        tune = tuning.state()
         for qcfg, e_pad, linear in buckets:
             edges = torch.zeros((rows, e_pad, 2), dtype=torch.int32, device=self.device)
-            key = _graph_key(qcfg, edges.device, rows, e_pad, linear)
+            key = _graph_key(qcfg, edges.device, rows, e_pad, linear, tune)
             if key in _GRAPHS:
                 continue
             weights = torch.zeros((rows, e_pad), dtype=torch.float32, device=self.device)
             lin = (torch.zeros((rows, qcfg.n_qubits), dtype=torch.float32,
                                device=self.device) if linear else None)
-            _GRAPHS[key] = _capture(qcfg, edges, weights, lin)
+            _GRAPHS[key] = _capture(qcfg, edges, weights, lin, tune)
             made += 1
         return made
 

@@ -95,7 +95,9 @@ class Engine:
             if self.cfg.eos_id is not None:
                 done = done | (tok == self.cfg.eos_id)
                 tok = torch.where(done, self.cfg.eos_id, tok)
-                if bool(torch.all(done)):
+                # one read a step by design, as the reference's engine does
+                # (module docstring): the early exit needs the host to know
+                if bool(torch.all(done)):  # reprolint: disable=host-read
                     out.append(tok)
                     self._stamp()
                     break

@@ -531,6 +531,110 @@ def test_set_aside_takes_a_blocks_counts_out():
     ledger.reset()
 
 
+def _key_now(qcfg, device="cuda", rows=128, e_pad=40, linear=False):
+    """A bucket's graph key under the tuning state of the moment, read as
+    `solve_graphed` and `LocalBackend.prepare` read it."""
+    from repro_torch.kernels import tuning
+
+    return tbackend._graph_key(qcfg, device, rows, e_pad, linear, tuning.state())
+
+
+def test_graph_key_carries_the_tuning_state():
+    """A graph captured under one tuning state is never the graph of
+    another: the key changes with `tuning.using_overrides` and with
+    `tuning.set_enabled`, and comes back with them."""
+    from repro_torch.kernels import tuning
+
+    qcfg = tqaoa.QAOAConfig(n_qubits=12, p_layers=3, opt_steps=30)
+    base = _key_now(qcfg)
+    table = {tuning.cache_key("expectation", 2**12): {"tile": 512}}
+    with tuning.using_overrides(table):
+        tuned = _key_now(qcfg)
+        with tuning.using_overrides({tuning.cache_key("expectation", 2**12): {"tile": 256}}):
+            other = _key_now(qcfg)
+    tuning.set_enabled(True)
+    try:
+        committed = _key_now(qcfg)
+    finally:
+        tuning.set_enabled(False)
+    keys = [base, tuned, other, committed]
+    assert len(set(keys)) == len(keys)
+    assert _key_now(qcfg) == base
+    assert base[-1] == ("off",) and committed[-1][0] == "on"
+
+
+def test_capture_runs_under_the_keyed_state(monkeypatch):
+    """`_capture` re-asserts the state its key names: every warm-up and the
+    capture itself see the keyed tuning state and tile (through a
+    recording `tuning.param`), whatever the caller's state,
+    and the caller's state comes back afterwards. The CUDA stream and
+    graph calls are stubbed (the CPU has none)."""
+    import contextlib
+
+    from repro_torch.kernels import tuning
+
+    seen = []
+    real_param = tuning.param
+
+    def recording_param(op, dim, name, default, device="cuda"):
+        value = real_param(op, dim, name, default, device)
+        seen.append((op, name, value))
+        return value
+
+    def fake_solve(edges, weights, cfg, linear=None):
+        tile = tuning.param("expectation", 2**cfg.n_qubits, "tile", 1024, "cuda")
+        seen.append(("state", tuning.state(), tile))
+        z = torch.zeros(edges.shape[0])
+        return z, z, z, z, z
+
+    class _Stream:
+        def __init__(self, *a):
+            pass
+
+        def wait_stream(self, other):
+            pass
+
+    monkeypatch.setattr(tuning, "param", recording_param)
+    monkeypatch.setattr(tqaoa, "solve_batch_on_device", fake_solve)
+    monkeypatch.setattr(torch.cuda, "Stream", _Stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(torch.cuda, "graph", lambda g: contextlib.nullcontext())
+
+    qcfg = tqaoa.QAOAConfig(n_qubits=12)
+    edges = torch.zeros((4, 6, 2), dtype=torch.int32)
+    weights = torch.zeros((4, 6))
+    key = tuning.cache_key("expectation", 2**12)
+    with tuning.using_overrides({key: {"tile": 256}}):
+        keyed = tuning.state()
+    with tuning.using_overrides({key: {"tile": 512}}):  # the caller's state differs
+        caller = tuning.state()
+        g = tbackend._capture(qcfg, edges, weights, None, keyed)
+        assert tuning.state() == caller
+    assert tuning.state() == ("off",)
+    states = [x for x in seen if x[0] == "state"]
+    assert len(states) == tbackend.GRAPH_WARMUP + 1
+    assert all(x == ("state", keyed, 256) for x in states)
+    assert ("expectation", "tile", 256) in seen
+    assert isinstance(g, tbackend._Graph)
+
+
+def test_backend_launch_bookkeeping_goes_through_ops():
+    """The service's backend counts a replay's launches through
+    `kernels.ops`, the dispatch boundary, not the build module."""
+    from repro_torch.kernels import _build, ops
+
+    assert not hasattr(tbackend, "_build")
+    ops.reset_launch_counts()
+    with ops.set_aside_launches() as launched:
+        _build.count_launch("expectation")
+    assert launched == {"expectation": 1} and ops.launch_counts()["expectation"] == 0
+    ops.add_launches(launched)
+    assert ops.launch_counts()["expectation"] == 1
+    ops.reset_launch_counts()
+
+
 @pytest.mark.parametrize("rows", [1, 3, 8])
 def test_pad_fold_is_independent_of_the_rows_beside_it(rows):
     """`fold_pad_bits`: a row folded alone and among other rows, bitwise."""
