@@ -120,8 +120,23 @@ runs these phases, each printing one line, failing on the first fault:
     float64 on the CPU at n = 12; (d)
     ``qaoa.solve_subgraph`` on the card bitwise equal to row 0 of the
     batch;
+26. the paper's evaluation through ``repro_torch.benchmarks``' entry
+    points in subprocesses: one ``run.py --full``, its rows split by name,
+    for Table 2 (every AR at most 1, brute force on the card equal to the
+    CPU's), Table 3 (each instance solved again on the card to the row's
+    AR exactly, its QAOA² and ParaQAOA cuts within 2% of sum|w| of the
+    CPU's, solved beside the subprocesses; where GW's cut is 0 on the card
+    it is 0 on the CPU, and no AR is printed), Figs. 9 and 10 (the merge
+    cuts equal to the CPU's), Fig. 12 (1,000-16,000 vertices; ``m`` and
+    the edge count equal to the host's), Figs. 13-14, and the kernel,
+    schedule and sharded-engine suites (⟨cut⟩ after the ascent at least
+    the ramp's); the ``--smoke`` variants of the service suites as parity
+    checks (``cut_equal`` on every row) and the obs suite at its defaults
+    (tracing within 1.05 of untraced, a warm ledger empty); each suite's
+    row names built from its sizes, its seconds and headline numbers
+    printed; then ``report.py``'s tables from 24a's records;
 
-Phases 21a-f, 22a-c, 23a-d, 24 and 25 run right after phase 1, before the first
+Phases 21a-f, 22a-c, 23a-d, 24, 25 and 26 run right after phase 1, before the first
 profiler trace (21g); then one JSON line of per-kernel numbers (``launches`` from phase 4's
 solve, ``service_launches`` from 21b's drain), the nvidia-smi line, and
 ``{"ok": true, ...}`` as the last line. It exits non-zero, printing no
@@ -133,6 +148,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import os
 import re as re_mod
 import statistics
@@ -211,6 +227,34 @@ REMESH_ATOL = 1e-5  # 24c: the reference's re-mesh tolerance
 # cutvals backward's tolerance, card against CPU, on a positive cotangent
 KEY_TILE = 256
 CUTVALS_GRAD_RTOL = 1e-5
+# the paper's evaluation (phase 26): the suites of `repro_torch.benchmarks`
+# through its entry points, the paper's and the kernel suites in one
+# `run.py --full` (the reference's knobs), the service suites at `--smoke`
+# as parity checks, the obs suite at its defaults: its bound is a timing,
+# and `--smoke`'s 200-request soak reads ~0.2 s, where one host stall of
+# 15 ms moves the ratio 0.07; the row names are built from these lists,
+# which are `run.py --full`'s and the drivers' defaults
+BENCH_PREFIX = {"small_scale": "small/", "medium_scale": "medium/", "k_sweep": "k_sweep/",
+                "l_sweep": "l_sweep/", "large_scale": "large/", "pei_eval": "pei/",
+                "kernel_bench": "kernel/", "sched_bench": "schedules/",
+                "sharded_engine": "sharded_engine/"}
+BENCH_SERVICE = (("service", "service_bench", ("--smoke",)),
+                 ("service_mesh", "service_bench", ("--distributed", "--smoke")),
+                 ("service_sla", "service_bench", ("--sla-soak", "--smoke")),
+                 ("obs", "obs_bench", ()))
+SMALL_SIZES, SMALL_PROBS = (14, 16, 18, 20), (0.3, 0.5)
+SMALL_METHODS = ("gw", "qaoa2", "local_search", "paraqaoa")
+MEDIUM_SIZES, MEDIUM_PROBS = (100, 200, 400), (0.1, 0.5)
+K_PROBS, K_KS = (0.3, 0.8), (1, 2, 3, 4)
+L_LS = (1, 2, 3)
+LARGE_SIZES, LARGE_P, LARGE_QUBITS = (1000, 2000, 4000, 8000, 16000), 0.02, 10
+PEI_SIZES, PEI_PROBS = (60, 120), (0.1, 0.5)
+SCHED_DS, ENGINE_N_LOCAL, ENGINE_D = (4, 8), 14, 4  # --full: 16 qubits
+SERVICE_LOADS, MESH_LOADS, SLA_LOADS = (1, 4), (2, 4), (1, 3, 9)
+# Table 3's replay on the CPU runs beside the card's suites on this many of
+# the host's threads, the rest left to the suites' host work
+CPU_REF_THREADS = 6
+AR_SLACK = 1e-6  # Table 2: no AR above the exact optimum
 CPU_BAND = 0.02  # of Σ|w|: the default-steps band of tests/test_torch_core.py
 TIE_RTOL = 1e-6  # marginals this close count as a tie the last ulp may break
 
@@ -2882,6 +2926,352 @@ def api_phase(torch, dev, smi: str) -> None:
           f"{float(one.expectation)!r} | {smi}")
 
 
+def bench_names(suite: str) -> list:
+    """The row names a suite gives at phase 26's sizes, from the lists
+    above."""
+    if suite == "small_scale":
+        return [f"small/{m}/n{n}/p{p}" for p in SMALL_PROBS for n in SMALL_SIZES
+                for m in SMALL_METHODS]
+    if suite == "medium_scale":
+        return [f"medium/{m}/n{n}/p{p}" for p in MEDIUM_PROBS for n in MEDIUM_SIZES
+                for m in ("gw", "qaoa2", "paraqaoa")]
+    if suite == "k_sweep":
+        return [f"k_sweep/K{k}/p{p}" for p in K_PROBS for k in K_KS]
+    if suite == "l_sweep":
+        return [f"l_sweep/L{l}" for l in L_LS]
+    if suite == "large_scale":
+        return [f"large/n{n}/p{LARGE_P}" for n in LARGE_SIZES]
+    if suite == "pei_eval":
+        return [f"pei/n{n}/p{p}" for p in PEI_PROBS for n in PEI_SIZES]
+    if suite == "kernel_bench":
+        return [f"kernel/{k}" for k in ("cutvals", "phase", "mixer", "cutbatch")]
+    if suite == "sched_bench":
+        return [f"schedules/sched_{k}_d{d}" for d in SCHED_DS
+                for k in ("faithful", "alternating", "speedup")]
+    if suite == "sharded_engine":
+        return [f"sharded_engine/layer_unfused_n{ENGINE_N_LOCAL}",
+                f"sharded_engine/layer_fused_n{ENGINE_N_LOCAL}",
+                "sharded_engine/layer_fusion_speedup",
+                f"sharded_engine/ramp_d{ENGINE_D}", f"sharded_engine/opt_d{ENGINE_D}",
+                f"sharded_engine/opt_vs_ramp_d{ENGINE_D}"]
+    if suite == "service":
+        return [f"service/{k}_load{r}" for r in SERVICE_LOADS
+                for k in ("seq", "batched", "speedup")]
+    if suite == "service_mesh":
+        return ([f"service_mesh/{k}_load{r}" for r in MESH_LOADS
+                 for k in ("local", "mesh", "parity")]
+                + [f"service_mesh/async_vs_sync_load{max(MESH_LOADS)}"])
+    if suite == "service_sla":
+        return [f"service_sla/load{r}rps" for r in SLA_LOADS]
+    return ["obs/soak_off", "obs/soak_on", "obs/overhead", "obs/compile_ledger"]
+
+
+def derived(row) -> dict:
+    return dict(kv.split("=", 1) for kv in row["derived"].split(";"))
+
+
+def csv_rows(stdout: str) -> list:
+    """The ``name,us_per_call,derived`` rows a driver printed."""
+    rows = []
+    for line in stdout.splitlines():
+        if line.startswith("#") or line.count(",") < 2:
+            continue
+        name, us, der = line.split(",", 2)
+        rows.append({"name": name, "runtime_s": float(us) / 1e6, "derived": der})
+    return rows
+
+
+def bench_run(root: str, module: str, args: list, timeout: int = 600):
+    """``python -m repro_torch.benchmarks.<module> <args>`` from the root of
+    the checkout: (stdout, seconds); fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"repro_torch.benchmarks.{module}", *args], cwd=root,
+        env={**os.environ, "PYTHONPATH": os.path.join(root, "src")},
+        capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"benchmarks.{module} {' '.join(args)}: rc "
+          f"{proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout, wall
+
+
+def span(xs) -> str:
+    return f"{min(xs):.4f}-{max(xs):.4f}"
+
+
+def same_up_to_ties(subgraphs, a, b) -> bool:
+    """Each basis index of ``a`` (a row a subgraph) is ``b``'s XOR a union
+    of connected components of its subgraph: flipping a component leaves
+    the cost, and so the QAOA state's probability, exactly the same (the
+    flip commutes with the cost and the mixer), and the last ulp orders
+    such states."""
+    for sub, ra, rb in zip(subgraphs, a, b):
+        e = np.asarray(sub.edges)[: sub.n_edges]
+        for x in np.atleast_1d(np.asarray(ra) ^ np.asarray(rb)):
+            x = int(x)
+            if x >> sub.n or any(((x >> int(u)) ^ (x >> int(v))) & 1 for u, v in e):
+                return False
+    return True
+
+
+def table3_on_both(torch) -> dict:
+    """Table 3's instances at the suite's knobs, solved on the card, then
+    replayed on the CPU in lockstep: at every QAOA stage the CPU solves the
+    same subgraphs, its picks must equal the card's up to exact ties
+    (`same_up_to_ties`), and it goes on from the card's picks, so every
+    later stage (a contraction, a merge) is discrete and must give the
+    card's cut exactly. ParaQAOA: the CPU's QAOA stage against the card's
+    candidates, then the CPU's merge of the card's candidates; QAOA²: each
+    `_top1` of its recursion. GW's draws differ by device, so its CPU run
+    only witnesses a collapse. Returns {(n, p): (card cuts by method, CPU
+    GW cut)}; fails on a disagreement."""
+    import importlib
+
+    from repro_torch.benchmarks import medium_scale as ms
+    from repro_torch.benchmarks.common import er_graph
+    from repro_torch.core import paraqaoa, solve
+    from repro_torch.core import qaoa as qaoa_mod
+    from repro_torch.core.baselines import goemans_williamson
+    from repro_torch.core.graph import cut_value
+
+    q2 = importlib.import_module("repro_torch.core.baselines.qaoa_in_qaoa")
+    top1 = q2._top1
+    cpu = torch.device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CPU_REF_THREADS)
+    out = {}
+    try:
+        for p in MEDIUM_PROBS:
+            for n in MEDIUM_SIZES:
+                g, name = er_graph(n, p, seed=0), f"G({n}, {p})"
+                v_gw = goemans_williamson(g, **ms.GW_KNOBS, device="cuda")[1]
+                picks = []
+
+                def record(subgraphs, *args):
+                    idx = top1(subgraphs, *args)
+                    picks.append(idx)
+                    return idx
+
+                def replay(subgraphs, n_qubits, cfg, device):
+                    want = picks.pop(0)
+                    got = top1(subgraphs, n_qubits, cfg, cpu)
+                    check(len(got) == len(want) and same_up_to_ties(subgraphs, want, got),
+                          f"Table 3 QAOA² {name}: the CPU's top-1 {got.tolist()} is not "
+                          f"the card's {want.tolist()} up to exact ties")
+                    return want
+
+                q2._top1 = record
+                try:
+                    v_q2 = q2.qaoa_in_qaoa(g, **ms.Q2_KNOBS, device="cuda")[1]
+                    n_stages = len(picks)
+                    q2._top1 = replay
+                    v_q2_cpu = q2.qaoa_in_qaoa(g, **ms.Q2_KNOBS, device=cpu)[1]
+                finally:
+                    q2._top1 = top1
+                check(v_q2_cpu == v_q2 and not picks,
+                      f"Table 3 QAOA² {name}: card {v_q2}, the CPU from the card's picks "
+                      f"{v_q2_cpu}")
+                para = solve(g, ms.PARA_CFG, device="cuda")
+                part, qcfg = para.partition, ms.PARA_CFG.qaoa_config()
+                e, w, m = qaoa_mod.pad_subgraph_arrays(part.subgraphs, qcfg.n_qubits,
+                                                       device=cpu)
+                cand = qaoa_mod.solve_subgraph_batch(e, w, m, qcfg).bitstrings.numpy()
+                check(same_up_to_ties(part.subgraphs, para.candidates, cand),
+                      f"Table 3 ParaQAOA {name}: the CPU's candidates are not the card's "
+                      f"up to exact ties")
+                assign = paraqaoa.merge_candidates(part, para.candidates, ms.PARA_CFG,
+                                                   device=cpu)[0]
+                v_para_cpu = float(cut_value(g, torch.as_tensor(assign)))
+                check(v_para_cpu == para.cut_value,
+                      f"Table 3 ParaQAOA {name}: card {para.cut_value}, the CPU's merge "
+                      f"of the card's candidates {v_para_cpu}")
+                gw_cpu = goemans_williamson(g, **ms.GW_KNOBS, device=cpu)[1]
+                out[(n, p)] = ({"gw": v_gw, "qaoa2": v_q2, "paraqaoa": para.cut_value},
+                               gw_cpu, n_stages)
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
+def table3_checks(rows: list, solved: dict) -> str:
+    """Table 3's rows against `table3_on_both`'s solves: each row's
+    `ar_vs_gw` must be the card's cut over the card's GW exactly (the solves
+    repeat bit for bit), so the row's cuts are those held against the CPU.
+    GW at the reference's fixed step collapses to a cut of 0 at high degree
+    (ROADMAP §3 item 6): where it does on the card it must on the CPU too,
+    and that instance prints no AR."""
+    cells = []
+    for p in MEDIUM_PROBS:
+        for n in MEDIUM_SIZES:
+            card, gw_cpu, n_stages = solved[(n, p)]
+            mine = {r["method"]: r for r in rows if r["n"] == n and r["p"] == p}
+            for method, r in mine.items():
+                check(r["ar_vs_gw"] == card[method] / max(card["gw"], 1e-9),
+                      f"Table 3 {r['name']}: AR {r['ar_vs_gw']!r}, but the card's cut "
+                      f"{card[method]!r} over GW's {card['gw']!r} again")
+            speedup = derived(mine["paraqaoa"])["speedup_vs_qaoa2"]
+            times = (f"qaoa2 {mine['qaoa2']['runtime_s']:.3f} s, paraqaoa "
+                     f"{mine['paraqaoa']['runtime_s']:.3f} s x{speedup}")
+            cuts = (f"cuts qaoa2 {card['qaoa2']:.0f} ({n_stages} QAOA stages), paraqaoa "
+                    f"{card['paraqaoa']:.0f}, gw {card['gw']:.0f} (CPU {gw_cpu:.0f})")
+            if card["gw"] == 0:
+                check(gw_cpu == 0, f"Table 3 G({n}, {p}): GW's cut 0 on the card but "
+                      f"{gw_cpu} on the CPU")
+                cells.append(f"n{n}/p{p} GW collapsed on card and CPU, no AR; {times} ({cuts})")
+            else:
+                cells.append(f"n{n}/p{p} AR qaoa2 {mine['qaoa2']['ar_vs_gw']:.4f}, paraqaoa "
+                             f"{mine['paraqaoa']['ar_vs_gw']:.4f}; {times} ({cuts})")
+    return ("; ".join(cells) + " | QAOA² and ParaQAOA replayed on the CPU: picks equal "
+            "up to exact ties, cuts equal")
+
+
+def paper_suite_checks(suite: str, rows: list, table3: dict) -> str:
+    """Phase 26's checks of one suite's rows of `run.py --full`; returns
+    the headline."""
+    from repro_torch.benchmarks import l_sweep
+    from repro_torch.benchmarks.common import er_graph
+    from repro_torch.core.baselines import brute_force_maxcut
+    from repro_torch.core.partition import partition_for_solver
+
+    if suite == "small_scale":
+        check(all(r["ar"] <= 1 + AR_SLACK for r in rows),
+              f"Table 2: an AR above 1: {[r['ar'] for r in rows]}")
+        for p in SMALL_PROBS:
+            for n in SMALL_SIZES:
+                g = er_graph(n, p, seed=0)
+                card = brute_force_maxcut(g, device="cuda")[1]
+                cpu = brute_force_maxcut(g, device="cpu")[1]
+                check(card == cpu, f"Table 2 brute force G({n}, {p}): card {card} != CPU {cpu}")
+        out = []
+        for m in SMALL_METHODS:
+            mine = [r for r in rows if r["method"] == m]
+            out.append(f"{m} AR {span([r['ar'] for r in mine])} in "
+                       f"{span([r['runtime_s'] for r in mine])} s")
+        para = " ".join(f"n{r['n']}/p{r['p']} {r['ar']:.4f}" for r in rows
+                        if r["method"] == "paraqaoa")
+        return ("; ".join(out) + f" | paraqaoa AR {para} | brute force card = CPU on "
+                f"{len(SMALL_SIZES) * len(SMALL_PROBS)} instances")
+    if suite == "medium_scale":
+        return table3_checks(rows, table3)
+    if suite == "k_sweep":
+        return "; ".join(f"K{r['k']}/p{r['p']} cut {r['cut']:.0f} in {r['runtime_s']:.3f} s"
+                         for r in rows)
+    if suite == "l_sweep":
+        cpu = l_sweep.run(device="cpu")
+        for r, c in zip(rows, cpu):
+            check(derived(r) == derived(c), f"Fig. 10 {r['name']}: card {r['derived']} "
+                  f"!= CPU {c['derived']}")
+        return "; ".join(f"L{i} {r['derived']} in {r['runtime_s'] * 1e3:.3f} ms"
+                         for i, r in zip(L_LS, rows)) + " | cuts card = CPU"
+    if suite == "large_scale":
+        for n, r in zip(LARGE_SIZES, rows):
+            g = er_graph(n, LARGE_P, seed=0)
+            d = derived(r)
+            m = partition_for_solver(g, LARGE_QUBITS).m
+            check(int(d["m"]) == m and int(d["edges"]) == g.n_edges,
+                  f"Fig. 12 n={n}: m {d['m']} edges {d['edges']}, host {m} {g.n_edges}")
+        return "; ".join(f"n{n} {r['runtime_s']:.3f} s ({r['derived']})"
+                         for n, r in zip(LARGE_SIZES, rows)) + " | m, edges = host"
+    if suite == "pei_eval":
+        check(all(math.isfinite(r["pei_q2"]) and math.isfinite(r["pei_para"]) for r in rows),
+              f"PEI rows {[r['derived'] for r in rows]}")
+        return "; ".join(f"{r['name']} {r['derived']}" for r in rows)
+    if suite == "kernel_bench":
+        check(all(math.isfinite(r["runtime_s"]) and r["runtime_s"] > 0 for r in rows),
+              f"kernel_bench times {[r['runtime_s'] for r in rows]}")
+        return "; ".join(f"{r['name']} {r['runtime_s'] * 1e3:.4f} ms ({r['derived']})"
+                         for r in rows)
+    if suite == "sched_bench":
+        return "; ".join(f"{r['name']} {r['runtime_s'] * 1e3:.3f} ms ({r['derived']})"
+                         for r in rows)
+    # sharded_engine
+    d = derived(rows[-1])
+    check(rows[-1]["opt_ge_ramp"] is True and float(d["exp_opt"]) >= float(d["exp_ramp"]),
+          f"sharded engine: opt below ramp: {rows[-1]['derived']}")
+    return "; ".join(f"{r['name']} {r['runtime_s'] * 1e3:.3f} ms ({r['derived']})"
+                     for r in rows)
+
+
+def service_suite_checks(suite: str, rows: list) -> None:
+    """Phase 26's checks of a service or obs run: parity, and the obs
+    suite's bound on tracing."""
+    check([r["name"] for r in rows] == bench_names(suite),
+          f"26 {suite}: rows {[r['name'] for r in rows]}")
+    if suite in ("service", "service_mesh"):
+        parity = [derived(r)["cut_equal"] for r in rows if "cut_equal" in derived(r)]
+        check(parity and all(x == "True" for x in parity), f"26 {suite}: cut_equal {parity}")
+    if suite == "obs":
+        over, ledger = rows[2], rows[3]
+        check(over["within_bound"] is True and over["overhead_bound"] == 1.05,
+              f"26 obs: tracing overhead {over['overhead_ratio']} above 1.05")
+        check(ledger["warm_zero"] is True, f"26 obs: warm ledger {ledger['derived']}")
+
+
+def evaluation_phase(torch, root: str, smi: str) -> None:
+    """Phase 26: the paper's evaluation through `repro_torch.benchmarks`'
+    entry points in subprocesses: one `run.py --full` for the paper's
+    tables and figures and the kernel suites, its rows split by name, then
+    the `--smoke` runs of the service suites, while this process replays
+    Table 3 on the CPU; then the obs suite alone (its overhead bound is a
+    timing), each suite's row names and checks, and `report.py`'s tables
+    from phase 24a's records."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.benchmarks import report
+    from repro_torch.benchmarks.common import RESULTS_DIR
+
+    t_phase = time.perf_counter()
+    save = os.path.join(RESULTS_DIR, "all.json")
+    service = BENCH_SERVICE[:3]
+
+    def card_runs():
+        runs = [bench_run(root, "run", ["--full", "--save", save], timeout=900)]
+        return runs + [bench_run(root, module, list(args)) for _, module, args in service]
+
+    with ThreadPoolExecutor(1) as pool:
+        card = pool.submit(card_runs)
+        t0 = time.perf_counter()
+        table3 = table3_on_both(torch)
+        cpu_s = time.perf_counter() - t0
+        (stdout, wall), *smoke = card.result()
+    print(f"[26 run.py --full] {wall:.1f} s of command, {stdout.splitlines()[0][2:]}; "
+          f"Table 3 on the card and replayed on the CPU ({CPU_REF_THREADS} threads) "
+          f"{cpu_s:.1f} s beside it",
+          flush=True)
+    with open(save) as f:
+        all_rows = json.load(f)
+    seconds = dict(re_mod.findall(r"^# (\w+): \d+ rows in ([\d.]+) s$", stdout,
+                                  re_mod.MULTILINE))
+    check(sorted(seconds) == sorted(BENCH_PREFIX), f"26 suites run: {sorted(seconds)}")
+    for suite, prefix in BENCH_PREFIX.items():
+        rows = [r for r in all_rows if r["name"].startswith(prefix)]
+        check([r["name"] for r in rows] == bench_names(suite),
+              f"26 {suite}: rows {[r['name'] for r in rows]}")
+        print(f"[26 {suite}] {len(rows)} rows in {seconds[suite]} s | "
+              f"{paper_suite_checks(suite, rows, table3)} | {smi}", flush=True)
+    _, module, args = BENCH_SERVICE[3]
+    smoke.append(bench_run(root, module, list(args)))
+    for (suite, module, args), (out, wall) in zip(BENCH_SERVICE, smoke):
+        if suite == "obs":
+            with open(os.path.join(RESULTS_DIR, "BENCH_obs.json")) as f:
+                rows = json.load(f)["rows"]
+        else:
+            rows = csv_rows(out)
+        service_suite_checks(suite, rows)
+        print(f"[26 {suite}] {module} {' '.join(args)}: {len(rows)} rows in {wall:.1f} s "
+              f"of command, parity checked | "
+              + "; ".join(f"{r['name']} {r['derived']}" for r in rows) + f" | {smi}",
+              flush=True)
+    recs = [r for r in report.load() if r.get("tag") == DRYRUN_TAG]
+    text = report.tables(recs)
+    check(len(recs) == len(DRYRUN_CELLS) + 1
+          and all(f"| {r['arch']} | {r['shape']} | {r['mesh']} | OK |" in text for r in recs),
+          f"26 report: {len(recs)} records of 24a, tables:\n{text}")
+    print(f"[26 report] report.py's tables from 24a's {len(recs)} records: "
+          f"{len(text.splitlines())} lines | phase 26 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2943,6 +3333,9 @@ def main() -> int:
     lint_phase(root, smi)
     graph_key_phase(torch, dev, smi)
     api_phase(torch, dev, smi)
+    # ---- 26. the paper's evaluation, before the profiler ----------------------
+    torch.cuda.empty_cache()
+    evaluation_phase(torch, root, smi)
 
     service_profile_phase(torch, s21)
     del s21["svc"]

@@ -1,17 +1,26 @@
 """Shared benchmark helpers (port of ``benchmarks/common.py``): seeded
-graphs, the card a run is on, and the JSON envelope the port's benchmarks
-write."""
+graphs, timing, CSV, the card a run is on, and the JSON envelope the
+port's benchmarks write.
+
+Every record of the port goes under ``build/bench/`` (`RESULTS_DIR`);
+``results/BENCH_*.json`` are the JAX package's records and keep its
+envelope."""
 
 from __future__ import annotations
 
+import argparse
 import functools
 import json
 import os
 import subprocess
+import time
 
 import torch
 
 from repro_torch.core.graph import Graph
+
+RESULTS_DIR = os.path.normpath(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                           "..", "..", "..", "build", "bench"))
 
 
 @functools.lru_cache(maxsize=8)
@@ -19,6 +28,43 @@ def er_graph(n: int, p: float, seed: int = 0) -> Graph:
     """G(n, p) from ``seed`` (built once per process: G(16000, 0.01) takes
     seconds on the host)."""
     return Graph.erdos_renyi(n, p, seed=seed)
+
+
+def device_arg(argv=None) -> str:
+    """The ``--device`` flag of a driver's command line (default ``cuda``);
+    the driver's other flags are left to it."""
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_known_args(argv)[0].device
+
+
+def timed(fn, *args, repeats: int = 1, **kwargs):
+    """(result, seconds), the best of ``repeats`` calls. Where this process
+    has used CUDA, each call ends in ``torch.cuda.synchronize()``, so the
+    time holds the card's work and not only its launch."""
+    best = float("inf")
+    result = None
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return result, best
+
+
+def emit(rows, header=None):
+    """Print rows as `name,us_per_call,derived` CSV (spec format)."""
+    for r in rows:
+        name = r["name"]
+        us = r.get("us_per_call", r.get("runtime_s", 0) * 1e6)
+        derived = r.get("derived", "")
+        print(f"{name},{us:.1f},{derived}")
+
+
+def bench_path(suite: str) -> str:
+    """The default record of ``suite``: ``build/bench/BENCH_<suite>.json``."""
+    return os.path.join(RESULTS_DIR, f"BENCH_{suite}.json")
 
 
 def card_info(device) -> tuple[str, str | None]:

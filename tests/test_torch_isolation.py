@@ -150,3 +150,36 @@ def test_train_entry_points_default_to_cuda(monkeypatch, entry):
     }[entry]
     with pytest.raises(RuntimeError, match="is_available"):
         run()
+
+
+_BENCH_ENTRIES = {
+    "run_cli": ("run", lambda m: m.main(["--only", "l_sweep"])),
+    "small_scale": ("small_scale", lambda m: m.run()),
+    "medium_scale": ("medium_scale", lambda m: m.run()),
+    "k_sweep": ("k_sweep", lambda m: m.run()),
+    "l_sweep": ("l_sweep", lambda m: m.run()),
+    "large_scale": ("large_scale", lambda m: m.run()),
+    "large_scale_distributed": ("large_scale", lambda m: m.run_distributed(save=False)),
+    "pei_eval": ("pei_eval", lambda m: m.run()),
+    "kernel_bench": ("kernel_bench", lambda m: m.run()),
+    "sched_bench": ("kernel_bench", lambda m: m.run_schedules(save=False)),
+    "sharded_engine": ("kernel_bench", lambda m: m.run_sharded_engine(save=False)),
+    "service_bench": ("service_bench", lambda m: m.run(save=False)),
+    "service_bench_distributed": ("service_bench",
+                                  lambda m: m.run_distributed(save=False)),
+    "service_bench_sla": ("service_bench", lambda m: m.run_sla_soak(save=False)),
+    "obs_bench": ("obs_bench", lambda m: m.main(["--smoke", "--no-save"])),
+}
+
+
+@pytest.mark.parametrize("entry", list(_BENCH_ENTRIES))
+def test_benchmark_entry_points_default_to_cuda(monkeypatch, entry):
+    """Every driver of `repro_torch.benchmarks` (and the umbrella CLI
+    without ``--device``) raises where CUDA is missing, before any work."""
+    import importlib
+
+    mod_name, call = _BENCH_ENTRIES[entry]
+    mod = importlib.import_module(f"repro_torch.benchmarks.{mod_name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        call(mod)
