@@ -1315,8 +1315,9 @@ def oracle_phase(torch, dev) -> None:
 
 def obs_phase(torch, dev, graph, root) -> None:
     """Phase 18: the G(400, 0.1) solve (N = 24, refine 200) under a
-    recording tracer, exported as JSON lines and Chrome events and
-    validated; the ledger's build events from phase 1, then none after
+    recording tracer, exported as JSON lines and Chrome events (the host
+    spans on track 1, the device intervals of the QAOA's parts on track 2)
+    and validated; the ledger's build events from phase 1, then none after
     ``reset()`` on the warm solve, whose dispatches are all ``cuda``."""
     from repro_torch.core import ParaQAOAConfig, solve
     from repro_torch.kernels import _build, ops
@@ -1345,19 +1346,25 @@ def obs_phase(torch, dev, graph, root) -> None:
         events = json.load(f)["traceEvents"]
     records = [{"span_id": e["args"]["span_id"], "parent_id": e["args"].get("parent_id"),
                 "name": e["name"], "t0": e["ts"], "t1": e["ts"] + e["dur"],
-                "attrs": e["args"]} for e in events]
+                "attrs": e["args"]} for e in events if e["tid"] == 1]
     errs += validate.validate_trace_records(records)
     check(not errs, f"trace violations: {errs}")
     names = [s.name for s in tracer.spans]
-    check(names == ["partition", "solve_pool", "merge", "refine", "solve"],
+    steps = ["adam_step"] * cfg.opt_steps
+    check(names == ["partition", "cost_table", *steps, "final_state", "top_k", "solve_pool",
+                    "merge_plan", "merge_scan", "merge", "refine", "report", "solve"],
           f"span tree {names}")
+    timed = [s.name for s in tracer.spans if "device_t0" in s.attrs]
+    check(timed == ["cost_table", *steps, "final_state", "top_k"]
+          and len(events) == len(records) + len(timed), f"device intervals of {timed}")
     snap = led.snapshot()
     check(snap["builds"] == 0 and snap["compiles"] == 0,
           f"the warm solve recorded {snap['builds']} builds")
     check(all(k.endswith("[cuda]") for k in snap["op_traces"]),
           f"dispatches off the card: {snap['op_traces']}")
     print(f"[18 obs] G(400, 0.1) N={N_MAIN} refine 200 under a recording tracer: cut "
-          f"{out.cut_value:.0f}, spans {names}, refine_s {out.timings['refine_s']:.3f}, "
+          f"{out.cut_value:.0f}, {len(names)} spans ({len(timed)} with device intervals), "
+          f"refine_s {out.timings['refine_s']:.3f}, "
           f"JSON lines and Chrome exports valid ({len(events)} events) | ledger: phase 1's "
           f"build events {builds}; after reset() the warm solve recorded 0 builds, "
           f"0 compiles, dispatches {snap['op_traces']}")

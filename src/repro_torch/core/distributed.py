@@ -108,17 +108,23 @@ def sharded_qaoa_batch(edges, weights, n: int, gammas, betas, axis,
     per_launch = subgraphs_per_launch(n, gammas.shape[1], opt_steps, axis,
                                       edges.device)
     outs = []
+    tr = trace_mod.get_tracer()
+    dev = edges.device
     for sl in launch_slices(b, per_launch):
         lin = None if linears is None else linears[sl]
-        cut = engine.cut_table(layout, edges[sl], weights[sl], lin)
+        with tr.device_span("cost_table", dev):
+            cut = engine.cut_table(layout, edges[sl], weights[sl], lin)
         gam, bet = gammas[sl].contiguous(), betas[sl].contiguous()
         if opt_steps:
             gam, bet = engine.sharded_ascent(layout, cut, gam, bet, opt_steps,
                                              learning_rate)
         with torch.no_grad():
-            re, im, in_b = engine.evolve(layout, cut, gam, bet)
-            exp = engine.expectation(layout, re, im, cut, in_b)
-            bits, probs = engine.top_candidates(layout, re, im, cut, in_b, top_k)
+            with tr.device_span("final_state", dev):
+                re, im, in_b = engine.evolve(layout, cut, gam, bet)
+                exp = engine.expectation(layout, re, im, cut, in_b)
+            with tr.device_span("top_k", dev):
+                bits, probs = engine.top_candidates(layout, re, im, cut, in_b,
+                                                    top_k)
         del re, im, cut  # free this launch's planes before the next one's
         outs.append(ShardedQAOAResult(bits, probs, exp, gam, bet))
     return ShardedQAOAResult(*(torch.cat(f) for f in zip(*outs)))
@@ -254,6 +260,8 @@ def solve_distributed(graph, cfg: para_mod.ParaQAOAConfig, mesh_spec,
     budget = device_cap + (model.h if model else 0)
     steps = cfg.sharded_opt_steps
     tr = trace_mod.get_tracer()
+    first = len(tr.spans)
+    tr.mark_device(dev)
     with tr.span("solve", n=graph.n, n_edges=graph.n_edges,
                  mesh=mesh.shape) as root:
         # ---- stage 1: partition at the lifted budget -------------------
@@ -323,14 +331,16 @@ def solve_distributed(graph, cfg: para_mod.ParaQAOAConfig, mesh_spec,
                     per_shard = w_exact
                 elif merge_mode == "striped":
                     per_shard = max(-(-bw // n_shards), 2 * cfg.top_k)
-            if per_shard is not None:
-                assign, val = merge_sharded(plan, per_shard, mesh,
-                                            axis=data_axes[-1], split_level=sl)
-                assignment, cut = assign.cpu().numpy(), float(val)
-            else:
-                merged = merge_mod.merge_scan(plan, bw)
-                assignment = merged.assignment.cpu().numpy()
-                cut = float(merged.cut_value)
+            with tr.span("merge_scan"):
+                if per_shard is not None:
+                    assign, val = merge_sharded(plan, per_shard, mesh,
+                                                axis=data_axes[-1],
+                                                split_level=sl)
+                    assignment, cut = assign.cpu().numpy(), float(val)
+                else:
+                    merged = merge_mod.merge_scan(plan, bw)
+                    assignment = merged.assignment.cpu().numpy()
+                    cut = float(merged.cut_value)
             del plan
 
         # ---- optional beyond-paper refinement ----------------------------
@@ -338,7 +348,10 @@ def solve_distributed(graph, cfg: para_mod.ParaQAOAConfig, mesh_spec,
             assignment, cut = para_mod.refine_merged(part.graph, assignment, cut,
                                                      cfg, lin_host, dev)
 
-    obj = para_mod.checked_value(prob, assignment, cut, cfg)
+        with tr.span("report"):
+            obj = para_mod.checked_value(prob, assignment, cut, cfg)
+
+    tr.resolve_device()
     timings = {
         "partition_s": sp_part.duration_s,
         "solve_s": sp_solve.duration_s,
@@ -346,6 +359,8 @@ def solve_distributed(graph, cfg: para_mod.ParaQAOAConfig, mesh_spec,
         "refine_s": sp_refine.duration_s,
         "total_s": root.duration_s,
     }
+    if tr.record:
+        timings.update(para_mod.traced_timings(tr.spans[first:]))
     report = SolveReport(
         method="paraqaoa-distributed",
         n_vertices=graph.n,

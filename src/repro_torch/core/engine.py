@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.core.axis import LocalAxis, ProcessGroupAxis
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as trace_mod
 
 # elements one sort call takes: bounds the sort's scratch on the card
 # (a 2^26-element stable sort with int64 indices needs ~2 GB)
@@ -252,6 +253,8 @@ def adam_scan(grad_fn: Callable, params: tuple, steps: int,
     The step counter is an f32 ``arange`` and the bias corrections are
     ``1 - beta^t`` in f32, as in the reference; `torch.optim.Adam` rounds
     its bias correction differently. Every tensor is per batch row.
+    Each step is an ``adam_step`` device span whose ``step`` attribute
+    counts on the host: a read of ``i`` would wait for the card.
     """
     beta1, beta2, eps = 0.9, 0.999, 1e-8
     params = tuple(p.detach() for p in params)
@@ -262,15 +265,17 @@ def adam_scan(grad_fn: Callable, params: tuple, steps: int,
     # waits for the stream
     b1 = torch.full((), beta1, dtype=torch.float32, device=dev)
     b2 = torch.full((), beta2, dtype=torch.float32, device=dev)
-    for i in torch.arange(steps, dtype=torch.float32, device=dev):
-        g = grad_fn(params)
-        m = tuple(beta1 * a + (1 - beta1) * b for a, b in zip(m, g))
-        v = tuple(beta2 * a + (1 - beta2) * b * b for a, b in zip(v, g))
-        t = i + 1
-        mh = tuple(a / (1 - b1**t) for a in m)
-        vh = tuple(a / (1 - b2**t) for a in v)
-        params = tuple(p - learning_rate * a / (torch.sqrt(b) + eps)
-                       for p, a, b in zip(params, mh, vh))
+    tr = trace_mod.get_tracer()
+    for step, i in enumerate(torch.arange(steps, dtype=torch.float32, device=dev)):
+        with tr.device_span("adam_step", dev, step=step):
+            g = grad_fn(params)
+            m = tuple(beta1 * a + (1 - beta1) * b for a, b in zip(m, g))
+            v = tuple(beta2 * a + (1 - beta2) * b * b for a, b in zip(v, g))
+            t = i + 1
+            mh = tuple(a / (1 - b1**t) for a in m)
+            vh = tuple(a / (1 - b2**t) for a in v)
+            params = tuple(p - learning_rate * a / (torch.sqrt(b) + eps)
+                           for p, a, b in zip(params, mh, vh))
     return params
 
 

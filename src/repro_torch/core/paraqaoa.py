@@ -67,15 +67,20 @@ class ParaQAOAOutput:
     report: SolveReport
     timings: dict
     candidates: np.ndarray  # (M, K) basis indices from the QAOA stage
+    # the QAOA stage's result: the candidates' probabilities, ⟨C⟩ and the
+    # angles of every row (no statevector); None from a solve on a mesh
+    qaoa: Optional[qaoa_mod.QAOAResult] = None
 
 
 def merge_inputs(part: Partition, bit_indices: np.ndarray, cfg: ParaQAOAConfig,
                  linear=None, device="cpu") -> tuple[merge_mod.MergePlan, int]:
-    """Stage-3 (plan, beam width): the beam and cap rules in one place."""
-    plan = merge_mod.build_merge_plan(part, bit_indices, cfg.top_k,
-                                      linear=linear, device=device)
-    bw = cfg.beam_width or merge_mod.exact_beam_width(cfg.top_k, part.m,
-                                                      cap=cfg.beam_cap)
+    """Stage-3 (plan, beam width): the beam and cap rules in one place, in
+    the span ``merge_plan``."""
+    with trace_mod.get_tracer().span("merge_plan"):
+        plan = merge_mod.build_merge_plan(part, bit_indices, cfg.top_k,
+                                          linear=linear, device=device)
+        bw = cfg.beam_width or merge_mod.exact_beam_width(cfg.top_k, part.m,
+                                                          cap=cfg.beam_cap)
     return plan, bw
 
 
@@ -85,11 +90,14 @@ def merge_candidates(part: Partition, bit_indices: np.ndarray,
     """Stage-3 merge of solved candidates → (assignment, score, beam width).
 
     The score is the internal (offset-free) objective: cut + linear terms.
+    The scan and the host's read of its result are the span ``merge_scan``.
     """
     plan, bw = merge_inputs(part, bit_indices, cfg, linear=linear,
                             device=device)
-    merged = merge_mod.merge_scan(plan, bw)
-    return (merged.assignment.cpu().numpy(), float(merged.cut_value), bw)
+    with trace_mod.get_tracer().span("merge_scan"):
+        merged = merge_mod.merge_scan(plan, bw)
+        assignment, cut = merged.assignment.cpu().numpy(), float(merged.cut_value)
+    return assignment, cut, bw
 
 
 def refine_merged(graph: Graph, assignment: np.ndarray, cut: float,
@@ -115,6 +123,22 @@ def checked_value(prob: Problem, assignment: np.ndarray, cut: float,
     return obj
 
 
+def traced_timings(spans) -> dict:
+    """The parts of a solve's stages, from the spans it recorded: the mean
+    seconds of an Adam step and the seconds of the QAOA's fixed tail (cost
+    table, final state, top-K), each on the card where the span has a
+    device interval, and the merge plan's and scan's host seconds."""
+    steps = [s.device_s for s in spans if s.name == "adam_step"]
+
+    def total(*names):
+        return sum(s.device_s for s in spans if s.name in names)
+
+    return {"adam_step_s": sum(steps) / len(steps) if steps else 0.0,
+            "qaoa_tail_s": total("cost_table", "final_state", "top_k"),
+            "merge_plan_s": total("merge_plan"),
+            "merge_scan_s": total("merge_scan")}
+
+
 def solve(graph: Graph | Problem, cfg: ParaQAOAConfig = ParaQAOAConfig(),
           partition: Partition | None = None,
           device: str | torch.device = "cuda") -> ParaQAOAOutput:
@@ -125,6 +149,10 @@ def solve(graph: Graph | Problem, cfg: ParaQAOAConfig = ParaQAOAConfig(),
     QUBO, MIS): linear terms thread through the cost oracle, the partition
     (each vertex's term to one subproblem) and the merge beam; the reported
     value is the full objective including the offset.
+
+    Under a recording tracer the timings also hold `traced_timings`, with
+    the device intervals anchored before the partition and resolved after
+    the solve's last read.
     """
     dev = resolve_device(device)
     prob = as_problem(graph)
@@ -132,6 +160,8 @@ def solve(graph: Graph | Problem, cfg: ParaQAOAConfig = ParaQAOAConfig(),
     has_lin = prob.has_linear
     lin_host = prob.linear.numpy() if has_lin else None
     tr = trace_mod.get_tracer()
+    first = len(tr.spans)
+    tr.mark_device(dev)
     with tr.span("solve", n=graph.n, n_edges=graph.n_edges) as root:
         # ---- stage 1: graph partition (paper Alg. 1) ---------------------
         with tr.span("partition", n_qubits=cfg.n_qubits) as sp_part:
@@ -160,7 +190,10 @@ def solve(graph: Graph | Problem, cfg: ParaQAOAConfig = ParaQAOAConfig(),
             assignment, cut = refine_merged(part.graph, assignment, cut, cfg,
                                             lin_host, dev)
 
-    obj = checked_value(prob, assignment, cut, cfg)
+        with tr.span("report"):
+            obj = checked_value(prob, assignment, cut, cfg)
+
+    tr.resolve_device()
     timings = {
         "partition_s": sp_part.duration_s,
         "solve_s": sp_solve.duration_s,
@@ -168,6 +201,8 @@ def solve(graph: Graph | Problem, cfg: ParaQAOAConfig = ParaQAOAConfig(),
         "refine_s": sp_refine.duration_s,
         "total_s": root.duration_s,
     }
+    if tr.record:
+        timings.update(traced_timings(tr.spans[first:]))
     report = SolveReport(
         method="paraqaoa",
         n_vertices=graph.n,
@@ -177,4 +212,4 @@ def solve(graph: Graph | Problem, cfg: ParaQAOAConfig = ParaQAOAConfig(),
     )
     return ParaQAOAOutput(assignment=assignment, cut_value=obj, partition=part,
                           report=report, timings=timings,
-                          candidates=bit_indices)
+                          candidates=bit_indices, qaoa=result)

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as trace_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,7 +132,7 @@ def solve_subgraph_batch(edges, weights, real_mask, cfg: QAOAConfig,
     queue, once the queue has room); reading the result waits for them.
     """
     gammas, betas, re, im, exp = solve_batch_on_device(edges, weights, cfg, linear)
-    with torch.no_grad():
+    with torch.no_grad(), trace_mod.get_tracer().device_span("top_k", re.device):
         bits, probs = topk_marginal(re, im, cfg.n_qubits, real_mask, cfg.top_k)
     return QAOAResult(bits, probs, exp, gammas, betas)
 
@@ -160,11 +161,15 @@ def solve_batch_on_device(edges, weights, cfg: QAOAConfig, linear=None):
     the cost diagonal, the Adam ascent, the final evolution and ⟨cut⟩.
     Returns (gammas, betas, re, im, expectation). Every shape in it is
     fixed by the inputs' shapes and ``cfg``, so on the card it can be
-    captured as one CUDA graph (`service.backend.LocalBackend`)."""
+    captured as one CUDA graph (`service.backend.LocalBackend`). Its three
+    parts are the device spans ``cost_table``, ``adam_step`` (one a step)
+    and ``final_state``."""
     n = cfg.n_qubits
-    cutv = ops.cutvals(n, edges, weights, linear)
+    tr = trace_mod.get_tracer()
+    with tr.device_span("cost_table", edges.device):
+        cutv = ops.cutvals(n, edges, weights, linear)
     gammas, betas = optimize_params(cutv, n, cfg)
-    with torch.no_grad():
+    with torch.no_grad(), tr.device_span("final_state", cutv.device):
         re, im = qaoa_statevector(cutv, n, gammas, betas, group=cfg.mixer_group)
         exp = ops.expectation(re, im, cutv)
     return gammas, betas, re, im, exp

@@ -390,6 +390,66 @@ def test_graphed_dispatch_equals_eager_bitwise(cuda_device):
     assert backend.graph_count() == 1
 
 
+def test_a_capture_under_a_recording_tracer_records_no_event(cuda_device):
+    """Under a recording tracer the backend's capture of
+    `qaoa.solve_batch_on_device` succeeds and leaves no CUDA event to
+    resolve: only the uncaptured warm-up runs on the side stream do (a
+    cost table, the steps and a final state each), and they resolve."""
+    from repro_torch.core import qaoa as qaoa_mod
+    from repro_torch.obs import trace
+    from repro_torch.service import backend
+
+    qcfg = qaoa_mod.QAOAConfig(n_qubits=8, p_layers=2, opt_steps=3, top_k=2)
+    e, w, m = _service_batch(cuda_device, 8, 16, 3)
+    backend.clear_graphs()
+    tr = trace.Tracer(record=True)
+    with trace.use_tracer(tr):
+        got = backend.LocalBackend("cuda").solve_batch(qcfg, e, w, m)
+    assert backend.graph_count() == 1
+    assert len(tr._pending) == backend.GRAPH_WARMUP * (qcfg.opt_steps + 2)
+    tr.resolve_device()
+    timed = [s for s in tr.spans if "device_t0" in s.attrs]
+    assert len(timed) == backend.GRAPH_WARMUP * (qcfg.opt_steps + 2)
+    assert all(0 <= s.device_s for s in timed)
+    want = qaoa_mod.solve_subgraph_batch(e, w, m, qcfg)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_traced_solve_places_device_intervals_inside_their_stage(cuda_device):
+    """A traced solve at a small size: every device interval lies inside
+    its parent's host interval (``solve_pool``); on the card the cost
+    table, the steps in step order, the final state and the top-K run one
+    after another without overlap; the parts close on the QAOA stage and
+    the merge's on the merge."""
+    from repro_torch.core import graph, paraqaoa
+    from repro_torch.obs import trace
+
+    g = graph.Graph.erdos_renyi(60, 0.3, seed=3)
+    cfg = paraqaoa.ParaQAOAConfig(n_qubits=12, opt_steps=5)
+    paraqaoa.solve(g, cfg, device=cuda_device)  # builds and warms up
+    tr = trace.Tracer(record=True)
+    with trace.use_tracer(tr):
+        out = paraqaoa.solve(g, cfg, device=cuda_device)
+    by_id = {s.span_id: s for s in tr.spans}
+    timed = sorted((s for s in tr.spans if "device_t0" in s.attrs),
+                   key=lambda s: s.attrs["device_t0"])
+    assert [s.name for s in timed] == (["cost_table"] + ["adam_step"] * cfg.opt_steps
+                                       + ["final_state", "top_k"])
+    assert [s.attrs["step"] for s in timed[1:-2]] == list(range(cfg.opt_steps))
+    for s in timed:
+        parent = by_id[s.parent_id]
+        assert parent.name == "solve_pool"
+        assert parent.t0 <= s.attrs["device_t0"] <= s.attrs["device_t1"] <= parent.t1
+    for a, b in zip(timed, timed[1:]):
+        assert a.attrs["device_t1"] <= b.attrs["device_t0"]
+    t = out.timings
+    assert cfg.opt_steps * t["adam_step_s"] + t["qaoa_tail_s"] <= t["solve_s"]
+    assert t["merge_plan_s"] + t["merge_scan_s"] <= t["merge_s"]
+    assert not any("device_t0" in s.attrs for s in tr.spans
+                   if s.name in ("merge_plan", "merge_scan", "report"))
+
+
 def test_graph_replay_counts_the_eager_launches(cuda_device):
     """A replay adds what its eager counterpart would: each kernel's
     launches and each op's ledger notes."""

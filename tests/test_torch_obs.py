@@ -2,8 +2,13 @@
 package's, on the CPU.
 
 - the span tree of a solve, under a recording tracer on an injected
-  counter clock, is the JAX solve's: its JSON lines are byte-equal (names,
-  parent links, attributes and stamps), `refine` included;
+  counter clock, holds the JAX solve's: restricted to the JAX span names,
+  the same names, parents, attributes and order, `refine` included; the
+  port's own tree (the QAOA's and the merge's parts, a span an Adam step)
+  is pinned, with the timings a recording tracer adds;
+- device spans: intervals from a fake event source resolve onto the
+  tracer's clock and export on a track of their own; no CUDA event is
+  made unless the tracer records on the default clock outside a capture;
 - the port's JSON-lines and Chrome exports pass both packages' validators;
 - `MetricsRegistry` gives byte-equal JSON and Prometheus text for the same
   operations;
@@ -73,7 +78,20 @@ def _chrome_records(doc):
 # trace
 # ---------------------------------------------------------------------------
 
+def _tree(spans, names=None):
+    """(name, parent's name, attrs) of each span named in ``names`` (all
+    when None), in end order, and their names in start order."""
+    by_id = {s.span_id: s for s in spans}
+    kept = [s for s in spans if names is None or s.name in names]
+    return ([(s.name, by_id[s.parent_id].name if s.parent_id is not None else None,
+              s.attrs) for s in kept],
+            [s.name for s in sorted(kept, key=lambda s: (s.t0, s.span_id))])
+
+
 def test_solve_span_tree_equals_the_jax_solve():
+    """The port's spans of the JAX span names form the JAX tree; the port's
+    further spans (the stages' parts) shift a counter clock's stamps and
+    the span ids, so those are not compared."""
     cfg = dict(n_qubits=8, opt_steps=1, refine_steps=5)
     jt = jtrace.Tracer(clock=_counter(), record=True)
     tt = ttrace.Tracer(clock=_counter(), record=True)
@@ -82,11 +100,156 @@ def test_solve_span_tree_equals_the_jax_solve():
     with ttrace.use_tracer(tt):
         tpara.solve(tgraph.Graph.erdos_renyi(30, 0.3, seed=1), tpara.ParaQAOAConfig(**cfg),
                     device="cpu")
-    assert [s.name for s in tt.spans] == ["partition", "solve_pool", "merge", "refine",
+    assert [s.name for s in jt.spans] == ["partition", "solve_pool", "merge", "refine",
                                           "solve"]
-    assert tt.to_jsonl() == jt.to_jsonl()
+    assert _tree(tt.spans, {s.name for s in jt.spans}) == _tree(jt.spans)
     _both_validate(tt.to_jsonl())
     assert ttrace.get_tracer() is not tt and not ttrace.get_tracer().record
+
+
+SOLVE_TREE = [  # (name, parent, attrs) in start order: 5 subgraphs, 3 steps
+    ("solve", None, {"n": 30, "n_edges": 139}),
+    ("partition", "solve", {"n_qubits": 8}),
+    ("solve_pool", "solve", {"m": 5, "n_qubits": 8}),
+    ("cost_table", "solve_pool", {}),
+    ("adam_step", "solve_pool", {"step": 0}),
+    ("adam_step", "solve_pool", {"step": 1}),
+    ("adam_step", "solve_pool", {"step": 2}),
+    ("final_state", "solve_pool", {}),
+    ("top_k", "solve_pool", {}),
+    ("merge", "solve", {"m": 5}),
+    ("merge_plan", "merge", {}),
+    ("merge_scan", "merge", {}),
+    ("refine", "solve", {"steps": 5}),
+    ("report", "solve", {}),
+]
+STAGE_KEYS = ["merge_s", "partition_s", "refine_s", "solve_s", "total_s"]
+PART_KEYS = ["adam_step_s", "merge_plan_s", "merge_scan_s", "qaoa_tail_s"]
+
+
+def test_solve_span_tree_of_the_port():
+    """A tiny solve's spans: names, nesting and the steps' host-counted
+    ``step``; the report inside the root; the part timings a recording
+    tracer adds, each the sum or mean of its spans, and none untraced."""
+    g = tgraph.Graph.erdos_renyi(30, 0.3, seed=1)
+    cfg = tpara.ParaQAOAConfig(n_qubits=8, opt_steps=3, refine_steps=5)
+    tr = ttrace.Tracer(clock=_counter(), record=True)
+    with ttrace.use_tracer(tr):
+        out = tpara.solve(g, cfg, device="cpu")
+    by_id = {s.span_id: s for s in tr.spans}
+    assert [(s.name, by_id[s.parent_id].name if s.parent_id is not None else None,
+             s.attrs) for s in tr._sorted()] == SOLVE_TREE
+    dur = {s.name: s.duration_s for s in tr.spans}
+    assert out.timings["adam_step_s"] == 1.0  # three steps of one tick each
+    assert out.timings["qaoa_tail_s"] == dur["cost_table"] + dur["final_state"] + dur["top_k"]
+    assert (out.timings["merge_plan_s"], out.timings["merge_scan_s"]) == (
+        dur["merge_plan"], dur["merge_scan"])
+    assert out.timings["total_s"] == dur["solve"]
+    assert sorted(out.timings) == sorted(STAGE_KEYS + PART_KEYS)
+    _both_validate(tr.to_jsonl())
+    assert out.qaoa.probs.shape == (5, cfg.top_k) and out.qaoa.gammas.shape == (5, 3)
+    assert np.array_equal(out.qaoa.bitstrings.numpy(), out.candidates)
+    assert sorted(tpara.solve(g, cfg, device="cpu").timings) == STAGE_KEYS
+
+
+class _FakeEvent:
+    """A CUDA event's part the tracer uses, at a device time in seconds."""
+
+    def __init__(self, t):
+        self.t = t
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def test_device_intervals_resolve_onto_the_tracer_clock(monkeypatch):
+    """Each device span's pair of events lands at the anchor's host time
+    less its distance from the anchor; one anchor a device, taken at the
+    resolution; host spans keep host time; the Chrome export puts the
+    device intervals on track 2 after the host events. With an anchor
+    taken before the work (`mark_device`, on "cuda" as on "cuda:0"), the
+    distances are scaled by the host's seconds a device second between the
+    two anchors."""
+    device_times = iter([10.0, 10.25, 10.25, 11.75, 10.0, 12.0])
+    anchors = iter([(_FakeEvent(20.0), 1000.0), (_FakeEvent(0.0), 979.0),
+                    (_FakeEvent(20.0), 1000.0)])
+    taken = []
+
+    def anchor(device, clock):
+        taken.append(device)
+        return next(anchors)
+
+    monkeypatch.setattr(ttrace, "_cuda_event", lambda device: _FakeEvent(next(device_times)))
+    monkeypatch.setattr(ttrace, "_anchor", anchor)
+    tr = ttrace.Tracer(record=True)
+    cuda = torch.device("cuda", 0)
+    with tr.span("solve_pool"):
+        for step in range(2):
+            with tr.device_span("adam_step", cuda, step=step):
+                pass
+    with tr.device_span("merge_plan", torch.device("cpu")):
+        pass
+    steps = [s for s in tr.spans if s.name == "adam_step"]
+    assert taken == [] and all("device_t0" not in s.attrs for s in steps)
+    tr.resolve_device()
+    assert taken == [0]
+    assert [(s.attrs["device_t0"], s.attrs["device_t1"]) for s in steps] == [
+        (990.0, 990.25), (990.25, 991.75)]
+    assert [s.device_s for s in steps] == [0.25, 1.5]
+    plan = next(s for s in tr.spans if s.name == "merge_plan")
+    assert "device_t0" not in plan.attrs and plan.device_s == plan.duration_s
+    tr.resolve_device()  # nothing left to place: no second anchor
+    assert taken == [0]
+    events = tr.to_chrome()["traceEvents"]
+    assert [e["tid"] for e in events] == [1, 1, 1, 1, 2, 2]
+    assert [(e["name"], e["ts"], e["dur"], e["args"]) for e in events[4:]] == [
+        ("adam_step", 990.0e6, 0.25e6, {"span_id": steps[0].span_id}),
+        ("adam_step", 990.25e6, 1.5e6, {"span_id": steps[1].span_id})]
+    # marked at device 0 s ↔ host 979 s, anchored at 20 s ↔ 1000 s: 1.05
+    # host seconds a device second
+    tr.mark_device(torch.device("cpu"))  # no device interval off the card
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    tr.mark_device(torch.device("cuda"))  # the current device: index 0
+    with tr.device_span("final_state", cuda):
+        pass
+    tr.resolve_device()
+    final = tr.spans[-1]
+    assert taken == [0] * 3
+    assert final.attrs["device_t0"] == pytest.approx(1000.0 - 10.0 * 1.05)
+    assert final.device_s == pytest.approx(2.0 * 1.05)
+
+
+class _EventSpy:
+    made = 0
+
+    def __init__(self, enable_timing=False):
+        type(self).made += 1
+
+    def record(self, stream=None):
+        pass
+
+
+@pytest.mark.parametrize("case", ["not recording", "injected clock", "captured",
+                                  "timed"])
+def test_no_cuda_event_unless_the_tracer_times_the_device(monkeypatch, case):
+    """A device span makes CUDA events only on a recording tracer, on the
+    default clock, outside a graph capture ("timed": two, its start and
+    end); in the other cases none, and nothing awaits resolution."""
+    monkeypatch.setattr(_EventSpy, "made", 0)
+    monkeypatch.setattr(torch.cuda, "Event", _EventSpy)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: case == "captured")
+    kw = {"not recording": {}, "injected clock": {"clock": _counter(), "record": True},
+          "captured": {"record": True}, "timed": {"record": True}}[case]
+    tr = ttrace.Tracer(**kw)
+    cuda = torch.device("cuda", 0)
+    if not tr.record or case == "injected clock":  # no anchor either
+        tr.mark_device(cuda)
+    with tr.device_span("adam_step", cuda, step=0):
+        pass
+    assert _EventSpy.made == (2 if case == "timed" else 0)
+    assert len(tr._pending) == (1 if case == "timed" else 0)
 
 
 def test_exports_pass_both_validators(tmp_path):
@@ -239,7 +402,9 @@ def test_cli_trace_out(tmp_path, capsys, fmt):
     solve_maxcut.run(["--device", "cpu", "--n", "24", "--qubits", "8", "--opt-steps", "1",
                       "--refine", "5", "--problem", "mis", "--trace-out", str(path),
                       "--trace-format", fmt])
-    assert f"[maxcut] trace ({fmt}, 5 spans)" in capsys.readouterr().out
+    # solve, partition, solve_pool (cost table, one Adam step, final state,
+    # top-K), merge (plan, scan), refine, report
+    assert f"[maxcut] trace ({fmt}, 12 spans)" in capsys.readouterr().out
     if fmt == "jsonl":
         _both_validate(path.read_text())
         assert tvalidate.main(["--trace", str(path)]) == 0
