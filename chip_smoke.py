@@ -525,8 +525,9 @@ def predicted_sharded_launches(ops, dist_mod, axis, sizes, p, opt_steps, dev):
     rules: per launch of `sharded_qaoa_batch` (a group of same-n subgraphs
     is split so its peak fits the card), 2 ``cutvals_at`` (layouts A and
     B, alternating schedule), 1 expectation, and per layer 1 fused +
-    one strided per group above the first of the n - h local qubits, and
-    the global-qubit mix: strided, or trailing where chunk == 1."""
+    one strided per group of `ops.layer_passes` over the n - h local
+    qubits, and the global-qubit mix: strided, or trailing where
+    chunk == 1."""
     want = {k: 0 for k in ops.KERNELS}
     for n in sorted(set(sizes)):
         per = dist_mod.subgraphs_per_launch(n, p, opt_steps, axis, dev)
@@ -536,7 +537,7 @@ def predicted_sharded_launches(ops, dist_mod, axis, sizes, p, opt_steps, dev):
         want["cutvals_at"] += 2 * launches
         want["expectation"] += launches
         want["fused_phase_mixer_group"] += p * launches
-        want["mixer_group_strided"] += p * len(range(GROUP, n_local, GROUP)) * launches
+        want["mixer_group_strided"] += p * len(ops.layer_passes(n_local, GROUP)[1]) * launches
         want[mix] += p * launches
     return want
 
@@ -544,10 +545,13 @@ def predicted_sharded_launches(ops, dist_mod, axis, sizes, p, opt_steps, dev):
 def predicted_solve_launches(cfg) -> dict:
     """Launches of one single-device solve, per kernel, from the code's own
     rules: 1 ``cutvals``; per Adam step a forward and a backward of p
-    layers, each 1 fused + one strided per group above the first, and 1
-    expectation, p ∂β and p ∂γ; then the final evolve and expectation."""
+    layers, each 1 fused + one strided per group of `ops.layer_passes`,
+    and 1 expectation, p ∂β and p ∂γ; then the final evolve and
+    expectation."""
+    from repro_torch.kernels import ops
+
     p, steps = cfg.p_layers, cfg.opt_steps
-    groups_above = len(range(GROUP, cfg.n_qubits, GROUP))
+    groups_above = len(ops.layer_passes(cfg.n_qubits, GROUP)[1])
     return {
         "cutvals": 1,
         "cutvals_at": 0,
@@ -908,9 +912,8 @@ DEFAULT_GEOMETRY = {
     "apply_phase|2^24": {"tile": 4096},
     "expectation|2^24": {"tile": 16384},
     "mixer_matmul|2^17": {"row_tile": 32},
-    "fused_layer|2^17": {"row_tile": 32},
+    "fused_layer|2^24": {"row_tile": 4},
     "mixer_strided|2^17": {"tile_y": 32},
-    "mixer_strided|2^21": {"tile_y": 512},
     "cutvals|2^24": {"tile_b": 1024},
     "cutvals_at|2^26": {"tile_b": 1024},
     "cut_batch_dense|2^9": {"batch_tile": 128, "k_chunk": 64},
@@ -1061,8 +1064,9 @@ def refine_phase(torch, graph, merged) -> None:
 def state_kernel_checks(torch, dev, edges, weights, n: int, seed: int) -> str:
     """Kernels #1-#4, ∂β and ∂γ at n qubits on the rows of ``edges`` /
     ``weights`` (unit weights), against their plain versions: `cutvals`
-    bitwise; the fused group [0, 7) in both directions, the strided
-    groups above it and the expectation on seeded unit-norm states; ∂β
+    bitwise; the passes of `ops.layer_passes` (the fused pass in both
+    directions, the strided groups above it) and the expectation on
+    seeded unit-norm states; ∂β
     over all n qubits within its tolerance and repeatable; ∂γ within 1e-5
     of Σ|c·t| a row and repeatable."""
     from repro_torch.kernels import betagrad, fused_layer, mixer, ops, phase, ref
@@ -1082,15 +1086,20 @@ def state_kernel_checks(torch, dev, edges, weights, n: int, seed: int) -> str:
     re, im = re / norm, im / norm
     gamma, beta = t(rng.uniform(-1, 1, b)), t(rng.uniform(-1, 1, b))
     errs = []
-    v3 = (b, 2**n // 2**GROUP, 2**GROUP)
+    f, strided = ops.layer_passes(n, GROUP)
+    v3 = (b, 2**n >> f, 2**f)
     for reverse in (False, True):
-        args = (re.view(v3), im.view(v3), cut.view(v3), gamma, beta, GROUP)
-        got = fused_layer.fused_phase_mixer_group(*args, reverse=reverse)
-        ref_ = fused_layer.fused_phase_mixer_group_plain(*args, reverse)
-        errs.append(max(float((x - y).abs().max()) for x, y in zip(got, ref_)))
+        args = (re.view(v3), im.view(v3), cut.view(v3), gamma, beta)
+        got = fused_layer.fused_phase_mixer_group(*args, f, reverse=reverse)
+        # the plain version 8 rows at a time: its dense matrices are 2^f × 2^f
+        # a row, 64 MiB each at f = 12
+        for r0 in range(0, b, 8):
+            ref_ = fused_layer.fused_phase_mixer_group_plain(
+                *[a[r0:r0 + 8] for a in args], f, reverse)
+            errs.append(max(float((x[r0:r0 + 8] - y).abs().max())
+                            for x, y in zip(got, ref_)))
     groups = []
-    for lo in range(GROUP, n, GROUP):  # the layer's groups above the first
-        k = min(GROUP, n - lo)
+    for lo, k in strided:  # the layer's groups above the fused pass
         shape = (b, 2 ** (n - lo - k), 2**k, 2**lo)
         got = mixer.mixer_group_strided(re.view(shape), im.view(shape), beta, k)
         ref_ = ref.mixer_group(re.view(shape), im.view(shape), beta, k)
@@ -1118,9 +1127,9 @@ def state_kernel_checks(torch, dev, edges, weights, n: int, seed: int) -> str:
           f"phase_grad at n = {n} not repeatable")
     del re, im, d_re, d_im, cut, want, got, ref_, bargs, pg
     torch.cuda.empty_cache()
-    return (f"n={n} on {b} rows: cutvals bitwise, fused (both directions) and strided "
-            f"{', '.join(groups)} within {max(errs):.3g} (tol 1e-5), expectation "
-            f"{rel:.3g} rel, beta_grad in reads {ref.beta_grad_launches(0, n)} within "
+    return (f"n={n} on {b} rows: cutvals bitwise, fused [0, {f}) (both directions) and "
+            f"strided {', '.join(groups) or 'none'} within {max(errs):.3g} (tol 1e-5), "
+            f"expectation {rel:.3g} rel, beta_grad in reads {ref.beta_grad_launches(0, n)} within "
             f"{float(err.max()):.3g} (tol {float(tol.min()):.3g}), phase_grad "
             f"{pg_rel:.3g} of sum|c t|, both repeatable")
 
@@ -3434,30 +3443,44 @@ def main() -> int:
         scale = max(float(w.abs().max()) for w in want)
         return err, state_rtol * scale
 
-    dk = 2**GROUP
-    v3 = (B_MAIN, dim // dk, dk)
-    errs = []
-    for reverse in (False, True):
-        args = (re.view(v3), im.view(v3), cutv.view(v3), gamma, beta, GROUP)
-        err, tol = planes_err(
-            fused_layer.fused_phase_mixer_group(*args, reverse=reverse),
-            fused_layer.fused_phase_mixer_group_plain(*args, reverse))
-        torch.cuda.synchronize()
-        check(err <= tol, f"fused reverse={reverse} max_abs_err {err} > {tol}")
-        errs.append(f"reverse={reverse}: {err:.3g} (tol {tol:.3g})")
-        if not reverse:
-            ms = time_ms(torch, lambda: fused_layer.fused_phase_mixer_group(*args), 10)
-            plain = time_ms(torch, lambda: fused_layer.fused_phase_mixer_group_plain(*args), 3)
-            record("fused_phase_mixer_group", err, ms, plain, bytes_=20 * amps,
-                   flops=amps * (6 + 6 * GROUP))
-        results["fused_phase_mixer_group"]["max_abs_err"] = max(
-            results["fused_phase_mixer_group"]["max_abs_err"], err)
-    r = results["fused_phase_mixer_group"]
-    print(f"[2 kernel fused_phase_mixer_group] view {v3} k={GROUP} | max_abs_err "
-          + ", ".join(errs) + f" | kernel {r['ms']:.3f} ms, plain "
-          f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+    # the fused pass at the width the N_MAIN layer runs it (`ops.layer_passes`),
+    # timed and recorded, then at k = 7 (n <= 19) and the whole tile, k = 12
+    # (n = 12 and n >= 26)
+    f_main, strided_main = ops.layer_passes(N_MAIN, GROUP)
+    for k in (f_main, 7, 12):
+        v3 = (B_MAIN, dim >> k, 2**k)
+        errs = []
+        for reverse in (False, True):
+            args = (re.view(v3), im.view(v3), cutv.view(v3), gamma, beta, k)
+            err, tol = planes_err(
+                fused_layer.fused_phase_mixer_group(*args, reverse=reverse),
+                fused_layer.fused_phase_mixer_group_plain(*args, reverse))
+            torch.cuda.synchronize()
+            check(err <= tol, f"fused k={k} reverse={reverse} max_abs_err {err} > {tol}")
+            errs.append(f"reverse={reverse}: {err:.3g} (tol {tol:.3g})")
+            if k == f_main and not reverse:
+                ms = time_ms(torch, lambda: fused_layer.fused_phase_mixer_group(*args), 10)
+                plain = time_ms(torch,
+                                lambda: fused_layer.fused_phase_mixer_group_plain(*args), 3)
+                record("fused_phase_mixer_group", err, ms, plain, bytes_=20 * amps,
+                       flops=amps * (6 + 6 * k))
+            else:
+                ms = time_ms(torch, lambda: fused_layer.fused_phase_mixer_group(
+                    *args, reverse=reverse), 10)
+            errs[-1] += f" {ms:.3f} ms"
+            results["fused_phase_mixer_group"]["max_abs_err"] = max(
+                results["fused_phase_mixer_group"]["max_abs_err"], err)
+        r = results["fused_phase_mixer_group"]
+        print(f"[2 kernel fused_phase_mixer_group] view {v3} k={k} | max_abs_err "
+              + ", ".join(errs) + f" | bound {20 * amps / mem_bw * 1e3:.3f} ms (bytes)"
+              + (f" | recorded: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                 f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})" if k == f_main else ""))
+    torch.cuda.empty_cache()
 
-    for lo_bit, k in ((7, 7), (14, 7), (21, 3)):
+    # the strided groups of the N_MAIN layer, then those of `ops.apply_mixer`
+    # above its trailing group (the sharded path's local mixes)
+    above = [(lo, k) for lo, k in ((7, 7), (14, 7), (21, 3)) if (lo, k) not in strided_main]
+    for lo_bit, k in [*strided_main, *above]:
         shape = (B_MAIN, 2 ** (N_MAIN - lo_bit - k), 2**k, 2**lo_bit)
         r3, i3 = re.view(shape), im.view(shape)
         err, tol = planes_err(mixer.mixer_group_strided(r3, i3, beta, k),
@@ -3475,7 +3498,7 @@ def main() -> int:
         print(f"[2 kernel mixer_group_strided] lo_bit={lo_bit} k={k} view {shape} | "
               f"max_abs_err {err:.3g} (tol {tol:.3g}) | kernel {ms:.3f} ms, plain "
               f"{plain:.3f} ms, complex einsum {lib:.3f} ms, bound {bound:.3f} ms (bytes)")
-        if "mixer_group_strided" not in results:  # the lo_bit = 7 case
+        if "mixer_group_strided" not in results:  # the layer's first group
             record("mixer_group_strided", err, ms, plain, bytes_=16 * amps,
                    flops=amps * 6 * k, library_ms=lib)
         else:
@@ -3483,6 +3506,7 @@ def main() -> int:
             r["max_abs_err"] = max(r["max_abs_err"], err)
 
     # the trailing-axis mixer: k = 7 on the contiguous axis of the planes
+    dk = 2**GROUP
     v3 = (B_MAIN, dim // dk, dk)
     r3, i3 = re.view(v3), im.view(v3)
     err, tol = planes_err(mixer.mixer_group_trailing(r3, i3, beta, GROUP),

@@ -39,7 +39,7 @@ from repro_torch.core.axis import LocalAxis
 from repro_torch.core.partition import partition_for_solver
 from repro_torch.core.qaoa import pad_subgraph_arrays
 from repro_torch.device import resolve_device
-from repro_torch.kernels import cutbatch, cutvals, fused_layer, mixer, phase, tuning
+from repro_torch.kernels import cutbatch, cutvals, fused_layer, mixer, ops, phase, tuning
 from repro_torch.kernels.fused_layer import TILE_AMPS
 from repro_torch.obs.clock import default_clock
 from repro_torch.roofline.analysis import (DEFAULT_CARD, achieved_fraction,
@@ -79,6 +79,13 @@ def _pow2_divisors(dim: int, lo: int = 1, hi: int | None = None):
             out.append(t)
         t *= 2
     return out
+
+
+def _row_tiles(r: int, k: int):
+    """``row_tile`` candidates of a (B, R, 2^k) view: the default first."""
+    tiles = _pow2_divisors(r, lo=max(1, 256 >> k), hi=TILE_AMPS >> k)
+    return _dedup([{"row_tile": min(TILE_AMPS >> k, r)}]
+                  + [{"row_tile": t} for t in reversed(tiles)])
 
 
 def _dedup(cands):
@@ -194,29 +201,30 @@ def _sweep_state_ops(sw: _Sweeper, shapes: Shapes):
                     + [{"tile": t} for t in e_tiles]),
              flops=4.0 * amps, nbytes=12.0 * amps, shape=shape)
 
-    # the trailing group and the fused layer share the (B, R, 2^k) view
+    # the trailing group of `mixer.apply_mixer`, on the (B, R, 2^group) view
     k = min(GROUP, n)
     dk = 2**k
     r = dim // dk
     v3 = (b, r, dk)
-    r_tiles = _pow2_divisors(r, lo=max(1, 256 >> k), hi=TILE_AMPS >> k)
-    r_cands = _dedup([{"row_tile": min(TILE_AMPS >> k, r)}]
-                     + [{"row_tile": t} for t in reversed(r_tiles)])
     sw.sweep("mixer_matmul", r,
              lambda: mixer.mixer_group_trailing(re.view(v3), im.view(v3), beta, k),
-             r_cands, flops=6.0 * k * amps, nbytes=16.0 * amps,
-             shape=f"({b}, 2^{n - k}, 2^{k})")
-    sw.sweep("fused_layer", r,
-             lambda: fused_layer.fused_phase_mixer_group(
-                 re.view(v3), im.view(v3), cutv.view(v3), gamma, beta, k),
-             r_cands, flops=(6.0 + 6.0 * k) * amps, nbytes=20.0 * amps,
+             _row_tiles(r, k), flops=6.0 * k * amps, nbytes=16.0 * amps,
              shape=f"({b}, 2^{n - k}, 2^{k})")
 
-    # the strided groups of one layer, by bucket (x·y = 2^(n-k), so one
-    # bucket holds the groups of one k); one call runs every group of it
+    # the layer's passes on this device (`ops.passes_on`): the fused pass
+    # on the low f qubits, keyed on the row's 2^n amplitudes, then the
+    # strided groups by bucket (x·y = 2^(n-k), so one bucket holds the
+    # groups of one k); one call runs every group of it
+    f, strided = ops.passes_on(re, n, GROUP)
+    rf = dim >> f
+    vf = (b, rf, 2**f)
+    sw.sweep("fused_layer", dim,
+             lambda: fused_layer.fused_phase_mixer_group(
+                 re.view(vf), im.view(vf), cutv.view(vf), gamma, beta, f),
+             _row_tiles(rf, f), flops=(6.0 + 6.0 * f) * amps, nbytes=20.0 * amps,
+             shape=f"({b}, 2^{n - f}, 2^{f})")
     buckets = {}
-    for lo in range(GROUP, n, GROUP):
-        kk = min(GROUP, n - lo)
+    for lo, kk in strided:
         buckets.setdefault(kk, []).append(lo)
     for kk, los in buckets.items():
         def groups(kk=kk, los=los):

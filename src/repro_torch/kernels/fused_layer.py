@@ -6,7 +6,8 @@ with one (γ, β) per batch row. ``reverse=True`` mixes first and phases
 second; called at (−γ, −β) it is the adjoint the layer backward runs.
 The kernel is ``csrc/fused_layer.cu``; its plain version is
 `fused_phase_mixer_group_plain` below. Its knob ``row_tile`` (rows of 2^k
-per block, key ``fused_layer``) resolves through `tuning.param`.
+per block, key ``fused_layer`` at the row's 2^n amplitudes) resolves
+through `tuning.param`.
 """
 
 from __future__ import annotations
@@ -18,11 +19,12 @@ from repro_torch.kernels import _build, ref, tuning
 TILE_AMPS = 4096  # amplitudes a block holds in shared memory (kTile in common.cuh)
 
 
-def row_tile(op: str, r: int, k: int, device) -> int:
+def row_tile(op: str, r: int, k: int, device, dim: int = 0) -> int:
     """Rows of 2^k per block for the row-tiled kernels (``fused_layer``,
     ``mixer_matmul``): TILE_AMPS >> k clamped to R with tuning off; a
-    tuned value must keep the tile within TILE_AMPS amplitudes."""
-    want = tuning.param(op, r, "row_tile", TILE_AMPS >> k, device)
+    tuned value, looked up under ``dim`` (R if 0), must keep the tile
+    within TILE_AMPS amplitudes."""
+    want = tuning.param(op, dim or r, "row_tile", TILE_AMPS >> k, device)
     if not tuning.is_pow2(want) or want << k > TILE_AMPS:
         raise ValueError(f"{op} row_tile {want} outside the kernel's range: "
                          f"a power of two with row_tile * 2^{k} <= {TILE_AMPS}")
@@ -53,7 +55,7 @@ def fused_phase_mixer_group(re: torch.Tensor, im: torch.Tensor,
         return fused_phase_mixer_group_plain(re, im, cutv, gamma, beta, k,
                                              reverse)
     b, r, dk = re.shape
-    if dk != 2**k or not 1 <= k <= 12 or r & (r - 1):
+    if dk != 2**k or not 1 <= k or dk > TILE_AMPS or r & (r - 1):
         raise ValueError(f"bad fused view {tuple(re.shape)} for k={k}")
     dev = re.device
     for t, name in ((re, "re"), (im, "im"), (cutv, "cutv")):
@@ -62,7 +64,9 @@ def fused_phase_mixer_group(re: torch.Tensor, im: torch.Tensor,
     beta = beta.to(torch.float32).contiguous()
     _build.require(gamma, "gamma", torch.float32, (b,), dev)
     _build.require(beta, "beta", torch.float32, (b,), dev)
-    tile_rows = row_tile("fused_layer", r, k, dev)
+    # keyed on a row's 2^n amplitudes: the pass plan takes k from n, so
+    # one entry holds the row_tile of one k (R alone runs at several)
+    tile_rows = row_tile("fused_layer", r, k, dev, dim=r << k)
     ore = torch.empty_like(re)
     oim = torch.empty_like(im)
     rc = _build.entry("fused_layer")(

@@ -10,7 +10,7 @@ The gradients mirror the JAX package's ``custom_vjp`` rules as
 adjoints up to the sign of the angles, so each backward pass re-enters the
 same kernels at negated angles:
 
-- `apply_layer` (``_layer_vjp``, ops.py:407-451): the trailing mixer
+- `apply_layer` (``_layer_vjp``, ops.py:407-451): the strided mixer
   groups at −β in reverse order, then the fused kernel in ``reverse``
   mode at (−γ, −β); ∂β from the generator contraction over all n qubits
   of the layer output (`betagrad.beta_grad`, a kernel of its own: the JAX
@@ -204,30 +204,55 @@ def apply_phase(re, im, cutv, gamma):
 # the layer and its adjoint
 # ---------------------------------------------------------------------------
 
+# qubits the fused pass can take: its tile holds TILE_AMPS amplitudes
+FUSED_MAX_K = fused_layer.TILE_AMPS.bit_length() - 1
+
+
+def layer_passes(n: int, group: int, widest: int = FUSED_MAX_K):
+    """The passes of one layer's mixer over (B, 2^n) planes: ``(f,
+    groups)``, the fused phase-and-mixer pass on qubits [0, f), then the
+    strided groups ``(lo_bit, nbits)`` above it. The fewest passes the
+    widths allow: s = ⌈max(0, n − widest) / group⌉ strided groups of at
+    most ``group`` qubits, and the fused pass on every qubit below them
+    (at least min(n, group), so a count of passes that cannot be cut
+    keeps the split of ``group`` qubits a pass). ``widest`` = ``group``
+    is that split, the reference's."""
+    s = -(-max(0, n - widest) // group)
+    f = max(min(n, group), n - s * group)
+    return f, tuple((g0, min(group, n - g0)) for g0 in range(f, n, group))
+
+
+def passes_on(x, n: int, group: int):
+    """The passes a layer runs on ``x``'s device: `layer_passes` on a CUDA
+    tensor, whose fused pass takes up to FUSED_MAX_K qubits; elsewhere the
+    reference's split (the plain versions build each pass's 2^k × 2^k
+    matrices)."""
+    return layer_passes(n, group, FUSED_MAX_K if _build.on_cuda(x) else group)
+
+
 def _layer_dispatch(n, group, re, im, cutv, gamma, beta):
-    """Phase + full mixer: the fused kernel for group 0, the strided kernel
-    for every group above it."""
+    """Phase + full mixer: the fused kernel on the low qubits, the strided
+    kernel for every group above them (`passes_on`)."""
     b = re.shape[0]
-    k = min(group, n)
+    k, groups = passes_on(re, n, group)
     dk = 2**k
     re_m, im_m = fused_layer.fused_phase_mixer_group(
         re.reshape(b, -1, dk), im.reshape(b, -1, dk), cutv.reshape(b, -1, dk),
         gamma, beta, k)
     re, im = re_m.reshape(b, -1), im_m.reshape(b, -1)
-    for g0 in range(k, n, group):
-        re, im = mixer.apply_mixer_bits(re, im, n, g0, min(group, n - g0), beta)
+    for g0, nbits in groups:
+        re, im = mixer.apply_mixer_bits(re, im, n, g0, nbits, beta)
     return re, im
 
 
 def _layer_adjoint_dispatch(n, group, re, im, cutv, gamma, beta):
-    """Transpose of `_layer_dispatch` on a cotangent: the trailing groups at
+    """Transpose of `_layer_dispatch` on a cotangent: the strided groups at
     −β in reverse order, then the fused kernel reversed at (−γ, −β)."""
     b = re.shape[0]
-    k = min(group, n)
+    k, groups = passes_on(re, n, group)
     dk = 2**k
-    for g0 in reversed(range(k, n, group)):
-        re, im = mixer.apply_mixer_bits(re, im, n, g0, min(group, n - g0),
-                                        -beta)
+    for g0, nbits in reversed(groups):
+        re, im = mixer.apply_mixer_bits(re, im, n, g0, nbits, -beta)
     re_m, im_m = fused_layer.fused_phase_mixer_group(
         re.reshape(b, -1, dk), im.reshape(b, -1, dk), cutv.reshape(b, -1, dk),
         -gamma, -beta, k, reverse=True)
@@ -263,7 +288,8 @@ class _Layer(torch.autograd.Function):
 
 def apply_layer(re, im, cutv, gamma, beta, n: int, group: int = 7):
     """One QAOA layer on (B, 2^n) planes: cost phase, then the n-qubit
-    mixer; γ, β (B,). Differentiable in every tensor argument."""
+    mixer, in the passes of `layer_passes` on the card; γ, β (B,).
+    Differentiable in every tensor argument."""
     _note("apply_layer", re)
     return _Layer.apply(re, im, cutv, gamma, beta, n, group)
 

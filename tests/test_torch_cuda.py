@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import betagrad, cutbatch, fused_layer, mixer, ops, phase, ref, tuning
+from repro_torch.kernels import _build, betagrad, cutbatch, fused_layer, mixer, ops, phase, ref, tuning
 from repro_torch.kernels import cutvals as cutvals_mod
 
 pytestmark = pytest.mark.cuda
@@ -201,7 +201,7 @@ def test_phase_grad_kernel_matches_plain_and_ignores_the_batch(cuda_device, n):
 
 
 def test_layer_counts_one_launch_per_kernel_call(cuda_device):
-    n = 16  # groups at 0 (fused), 7 and 14 (strided)
+    n = 16  # the layer: fused [0, 9), strided [9, 16) (`ops.layer_passes`)
     re, im, cutv, g, b = _inputs(n, 2, 0, cuda_device)
     ops.reset_launch_counts()
     ops.apply_layer(re, im, cutv, g, b, n, 7)
@@ -209,8 +209,88 @@ def test_layer_counts_one_launch_per_kernel_call(cuda_device):
     ops.apply_mixer(re, im, n, b, 7)  # the trailing group, then 2 strided
     assert ops.launch_counts() == {
         "cutvals": 0, "cutvals_at": 0, "fused_phase_mixer_group": 1,
-        "mixer_group_strided": 4, "mixer_group_trailing": 1, "expectation": 1,
+        "mixer_group_strided": 3, "mixer_group_trailing": 1, "expectation": 1,
         "apply_phase": 0, "cut_batch_dense": 0, "beta_grad": 0, "phase_grad": 0}
+
+
+def _card_inputs(n, b, seed, dev):
+    """As `_inputs`, drawn on the card (rows of up to 2^26 amplitudes)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    re = torch.randn((b, 2**n), generator=gen, device=dev)
+    im = torch.randn((b, 2**n), generator=gen, device=dev)
+    norm = torch.sqrt((re * re + im * im).sum(1, keepdim=True))
+    cutv = n * torch.rand((b, 2**n), generator=gen, device=dev)
+    ang = 4 * torch.rand((2, b), generator=gen, device=dev) - 2
+    return re / norm, im / norm, cutv, ang[0], ang[1]
+
+
+def _close_to_scale(got, want, rtol=1e-5):
+    """Planes within ``rtol`` of the largest |want|: the dense 2^k-term
+    product against k butterflies, in f32."""
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, atol=rtol * float(y.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("k", [8, 10, 12])
+@pytest.mark.parametrize("rows", [1, 16, 2**14])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_fused_kernel_at_the_plan_widths_matches_plain(cuda_device, k, rows, reverse):
+    """The fused pass at the widths `ops.layer_passes` gives it, up to the
+    whole 4096-amplitude tile: one row a block at k = 12, several below."""
+    b = 2
+    n = k + rows.bit_length() - 1
+    re, im, cutv, g, beta = _card_inputs(n, b, 100 * k + n, cuda_device)
+    v = (b, rows, 2**k)
+    args = (re.view(v), im.view(v), cutv.view(v), g, beta, k)
+    got = fused_layer.fused_phase_mixer_group(*args, reverse=reverse)
+    _close_to_scale(got, fused_layer.fused_phase_mixer_group_plain(*args, reverse))
+
+
+def test_layer_at_26_qubits_matches_the_plain_path(cuda_device, monkeypatch):
+    """`apply_layer` at n = 26 in the plan's passes (fused [0, 12), strided
+    [12, 19) and [19, 26)), forward and backward, against the plain
+    versions on the same card along the reference's split (7 + 7 + 7 + 5):
+    the planes and the cotangent planes within 1e-5 of their largest
+    amplitude, ∂β within `betagrad.tolerance`, ∂γ within 1e-5 of
+    Σ|c|·(|im·ḡre| + |re·ḡim|) a row."""
+    n, b = 26, 2
+    re, im, cutv, g, beta = _card_inputs(n, b, 7, cuda_device)
+    d_re, d_im, _, _, _ = _card_inputs(n, b, 8, cuda_device)
+
+    def run():
+        args = [t.clone().requires_grad_(True) for t in (re, im, g, beta)]
+        out = ops.apply_layer(args[0], args[1], cutv, args[2], args[3], n, 7)
+        grads = torch.autograd.grad(out, args, (d_re, d_im))
+        return [o.detach() for o in out], grads
+
+    got, got_g = run()
+    with monkeypatch.context() as m:
+        m.setattr(_build, "on_cuda", lambda t: False)
+        want, want_g = run()
+    _close_to_scale(got, want)
+    _close_to_scale(got_g[:2], want_g[:2])
+    g_re, g_im = want_g[:2]
+    scale = (cutv.abs() * ((im * g_re).abs() + (re * g_im).abs())).sum(-1)
+    assert bool(((got_g[2] - want_g[2]).abs() <= 1e-5 * scale).all())
+    tol = betagrad.tolerance(d_re, d_im, *want, 0, n)
+    assert bool(((got_g[3] - want_g[3]).abs() <= tol).all())
+
+
+def test_layer_at_26_qubits_launches_three_passes_each_way(cuda_device):
+    """One fused and two strided launches forward, the same again in the
+    adjoint, beside the backward's ∂β and ∂γ."""
+    n = 26
+    re, im, cutv, g, b = _card_inputs(n, 1, 9, cuda_device)
+    args = [t.clone().requires_grad_(True) for t in (re, im, g, b)]
+    ops.reset_launch_counts()
+    out = ops.apply_layer(args[0], args[1], cutv, args[2], args[3], n, 7)
+    forward = ops.launch_counts()
+    torch.autograd.grad(out, args, (re, im))
+    both = ops.launch_counts()
+    none = dict.fromkeys(ops.KERNELS, 0)
+    assert forward == {**none, "fused_phase_mixer_group": 1, "mixer_group_strided": 2}
+    assert both == {**none, "fused_phase_mixer_group": 2, "mixer_group_strided": 4,
+                    "beta_grad": 1, "phase_grad": 1}
 
 
 @pytest.mark.parametrize("schedule", ["faithful", "alternating"])

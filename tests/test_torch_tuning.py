@@ -164,7 +164,7 @@ def _launch_all(n=12, k=7, b=2):
     cutvals.cutvals_at(idx, edges, weights)
     cutbatch.cut_batch_dense(torch.ones((3, 50)), torch.zeros((50, 50)), 0.0)
     betagrad.beta_grad(re, im, cutv, re, 0, n)
-    return {"apply_phase": dim, "expectation": dim, "fused_layer": dim // dk,
+    return {"apply_phase": dim, "expectation": dim, "fused_layer": dim,
             "mixer_matmul": dim // dk, "mixer_strided": 2 ** (n - 3),
             "cutvals": dim, "cutvals_at": 128, "cut_batch_dense": 50}
 
@@ -280,12 +280,25 @@ def test_wrappers_launch_the_override_with_tuning_on(recorder):
     ("cut_batch_dense", {"k_chunk": 16}),
 ])
 def test_out_of_range_knobs_raise(recorder, op, cfg):
-    dims = {"apply_phase": 4096, "expectation": 4096, "fused_layer": 32,
+    dims = {"apply_phase": 4096, "expectation": 4096, "fused_layer": 4096,
             "mixer_matmul": 32, "mixer_strided": 512, "cutvals": 4096,
             "cutvals_at": 128, "cut_batch_dense": 50}
     with tuning.using_overrides({tuning.cache_key(op, dims[op], "cpu"): cfg}):
         with pytest.raises(ValueError, match="range|power of two|below|outside|instances"):
             _launch_all(n=12, k=7)
+
+
+def test_fused_layer_entry_keys_the_row_so_one_k_holds_it(recorder):
+    """R = 2^3 rows run at k = 7 (n = 10) and at k = 12 (n = 15) in the
+    pass plan: an entry swept at n = 10 sets the first, and the second,
+    where 4 rows of 2^12 would overflow the tile, keeps its default."""
+    table = {tuning.cache_key("fused_layer", 2**10, "cpu"): {"row_tile": 4}}
+    with tuning.using_overrides(table):
+        for k, want in ((7, 4), (12, 1)):
+            re, im, cutv = _planes(1, 8, 2**k)
+            ang = torch.zeros(1)
+            fused_layer.fused_phase_mixer_group(re, im, cutv, ang, ang, k)
+            assert recorder["fused_layer"][-1][11] == want, k
 
 
 # ---------------------------------------------------------------------------
