@@ -31,7 +31,6 @@ def main(argv=None) -> int:
     import torch
 
     from perfbench.lib import bench, check, generate, spec as spec_mod
-    from repro_torch.core import qaoa as qaoa_mod
     from repro_torch.core.graph import Graph
     from repro_torch.core.paraqaoa import ParaQAOAConfig, solve
 
@@ -42,13 +41,11 @@ def main(argv=None) -> int:
     out = open(args.out, "a") if args.out else None
     for seed in (int(s) for s in args.seeds.split(",")):
         inst = generate.instance(spec.traffic, seed, 0, device)
-        kept = []
         t0 = time.perf_counter()
-        with bench.capture_qaoa(qaoa_mod, kept):
-            res = solve(bench.graph_of(Graph, inst), cfg, device=device)
+        res = solve(bench.graph_of(Graph, inst), cfg, device=device)
         t1 = time.perf_counter()
-        solved = [bench.solved_of(inst, res, kept[-1])]
-        del res, kept
+        solved = [bench.solved_of(inst, res)]
+        del res
         nums, plans = check.exact_numbers(spec.config, solved, device)
         t2 = time.perf_counter()
         q = check.qaoa_numbers(spec.config, solved, plans, seed, int(spec.cell["qaoa_rows"]),

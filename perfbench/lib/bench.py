@@ -14,10 +14,16 @@ until the window's seconds have passed; the solve under way then ends and
 counts. Each solve ends in the solver's own reads of the device, and the
 loop synchronises the device after it all the same.
 
-To judge the QAOA stage, the loop keeps what the solver's
-``core.qaoa.solve_subgraph_batch`` returned inside each solve (the
-candidates' probabilities and ⟨C⟩ of every row), on the device until the
-window has closed.
+To judge the QAOA stage, the loop keeps what each solve returns as
+``out.qaoa`` (the candidates' probabilities and ⟨C⟩ of every row), on the
+device until the window has closed.
+
+Every kernel that ``perfbench/counts/`` prices is launched inside
+``core.qaoa.solve_batch_on_device``, and the window records the rows
+(``edges.shape[0]``) of each of its calls, in order, as ``Window.batches``.
+A round is one call of ``solve_batch_on_device`` on that round's rows: a
+solve that runs its subgraphs in rounds makes one call a round, each
+launching every kernel as often as the others do.
 """
 
 from __future__ import annotations
@@ -52,23 +58,24 @@ class Window:
     window_s: float
     trace: object = None  # devtrace.Reading
     launches: dict = None  # kernel launches over the window, by wrapper
+    batches: list = dataclasses.field(default_factory=list)  # rows of each batch
 
 
 @contextlib.contextmanager
-def capture_qaoa(qaoa_mod, into: list):
-    """Keep each result of ``qaoa_mod.solve_subgraph_batch`` in ``into``."""
-    inner = qaoa_mod.solve_subgraph_batch
+def capture_batches(qaoa_mod, into: list):
+    """Append the rows of each call of ``qaoa_mod.solve_batch_on_device`` to
+    ``into`` (its callers look the name up in the module when they call)."""
+    inner = qaoa_mod.solve_batch_on_device
 
-    def kept(*args, **kwargs):
-        res = inner(*args, **kwargs)
-        into.append(res)
-        return res
+    def counted(edges, *args, **kwargs):
+        into.append(int(edges.shape[0]))
+        return inner(edges, *args, **kwargs)
 
-    qaoa_mod.solve_subgraph_batch = kept
+    qaoa_mod.solve_batch_on_device = counted
     try:
         yield
     finally:
-        qaoa_mod.solve_subgraph_batch = inner
+        qaoa_mod.solve_batch_on_device = inner
 
 
 def graph_of(Graph, inst):
@@ -101,13 +108,13 @@ def run(spec, seed: int, seconds: float, trace: bool, device, t_start: float,
     pool = [generate.instance(spec.traffic, seed, i, device) for i in range(pool_size)]
     graphs = [graph_of(Graph, inst) for inst in pool]
     warm = graph_of(Graph, generate.instance(spec.traffic, seed, -1, device))
-    kept: list = []
-    with capture_qaoa(qaoa_mod, kept):
+    batches: list = []
+    with capture_batches(qaoa_mod, batches):
         t_warm = time.perf_counter()
         solve(warm, dataclasses.replace(cfg, opt_steps=min(cfg.opt_steps, WARM_STEPS)),
               device=device)
         _sync(device)
-        kept.clear()
+        batches.clear()
         t_ready = time.perf_counter()
         setup_s = t_ready - t_start
         log(f"setup {setup_s:.3f} s: start and imports {t_pool - t_start:.3f}, pool of "
@@ -127,11 +134,10 @@ def run(spec, seed: int, seconds: float, trace: bool, device, t_start: float,
             for i in range(pool_size + 1):
                 if i == pool_size:
                     raise SystemExit(f"pool of {pool_size} exhausted within the window")
-                kept.clear()
                 try:
                     out = solve(graphs[i], cfg, device=device)
                     _sync(device)
-                    outs.append((i, out, kept[-1]))
+                    outs.append((i, out))
                 except Exception:  # a solve that fails counts, and the loop goes on
                     log(traceback.format_exc())
                     failed += 1
@@ -150,25 +156,26 @@ def run(spec, seed: int, seconds: float, trace: bool, device, t_start: float,
     durations = np.diff([t0] + ends)
     log(f"solves {done} in {t1 - t0:.6f} s; per solve: min {durations.min():.6f} "
         f"median {stats.percentile(durations, 0.5):.6f} max {durations.max():.6f} s; "
-        + "; ".join(f"{k} " + " ".join(f"{o.timings[k]:.4f}" for _, o, _ in outs)
+        + "; ".join(f"{k} " + " ".join(f"{o.timings[k]:.4f}" for _, o in outs)
                     for k in ("partition_s", "solve_s", "merge_s", "refine_s")))
 
     window = Window(config=spec.config, rows=outs[0][1].partition.m,
-                    timings=[o.timings for _, o, _ in outs], window_s=t1 - t0)
+                    timings=[o.timings for _, o in outs], window_s=t1 - t0,
+                    batches=batches)
     if trace:
         window.trace = dev_trace.read(t0, t1, tracer.spans)
         window.launches = launches
         metrics = _per_layer(spec, window, log)
     else:
-        cut_sum = sum(check_mod.cut(pool[i][1], pool[i][2], o.assignment) for i, o, _ in outs)
-        abs_w = sum(float(np.abs(pool[i][2].astype(np.float64)).sum()) for i, _, _ in outs)
+        cut_sum = sum(check_mod.cut(pool[i][1], pool[i][2], o.assignment) for i, o in outs)
+        abs_w = sum(float(np.abs(pool[i][2].astype(np.float64)).sum()) for i, _ in outs)
         e2e = {"setup_s": setup_s, "tts_s": (t1 - t0) / done,
                "cut_ratio": cut_sum / abs_w, "peak_gib": memory_peak / 2**30}
         metrics = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
                    for m in spec.end_to_end}
 
-    solved = [solved_of(pool[i], o, res) for i, o, res in outs]
-    del outs, kept, graphs
+    solved = [solved_of(pool[i], o) for i, o in outs]
+    del outs, graphs
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -186,10 +193,10 @@ def run(spec, seed: int, seconds: float, trace: bool, device, t_start: float,
     return result, checks
 
 
-def solved_of(inst, out, res) -> check_mod.Solved:
+def solved_of(inst, out) -> check_mod.Solved:
     """A solve's instance and what it returned, on the host, for the check."""
     n, edges, weights = inst
-    part = out.partition
+    part, res = out.partition, out.qaoa
     return check_mod.Solved(
         n=n, edges=edges, weights=weights,
         assignment=np.asarray(out.assignment, dtype=np.int8), value=float(out.cut_value),

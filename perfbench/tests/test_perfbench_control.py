@@ -15,16 +15,13 @@ QAOA = ("qaoa_exp_err", "qaoa_prob_err")
 
 
 def _readings(family, seed, device):
-    from repro_torch.core import qaoa as qaoa_mod
     from repro_torch.core.graph import Graph
     from repro_torch.core.paraqaoa import ParaQAOAConfig, solve
 
     sp = tiny.spec(family)
     inst = generate.instance(sp.traffic, seed, 0, device)
-    kept = []
-    with bench.capture_qaoa(qaoa_mod, kept):
-        res = solve(bench.graph_of(Graph, inst), ParaQAOAConfig(**sp.config), device=device)
-    solved = [bench.solved_of(inst, res, kept[-1])]
+    res = solve(bench.graph_of(Graph, inst), ParaQAOAConfig(**sp.config), device=device)
+    solved = [bench.solved_of(inst, res)]
     nums, plans = check.exact_numbers(sp.config, solved, device)
     q = check.qaoa_numbers(sp.config, solved, plans, seed, 1000, device, control=True)
     return sp.cell["limits"], nums, q
