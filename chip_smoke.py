@@ -611,7 +611,7 @@ def sharded_solve_phases(torch, dev, graph) -> dict:
           f"cut {out.cut_value:.1f} of total weight {total_w:.0f} | M={part.m} "
           f"sizes {dict(sorted((n, part.sizes.count(n)) for n in set(part.sizes)))}, "
           f"{extra['sharded_subproblems']} sharded, beam={extra['beam']} | "
-          + " ".join(f"{k}={v:.3f}s" for k, v in out.timings.items())
+          + stage_line(out)
           + f" | peak memory {peak_gb:.2f} GB | launches {counts} predicted {predicted}")
     check(extra["sharded_subproblems"] == M_SHARDED,
           f"{extra['sharded_subproblems']} subgraphs sharded, expected {M_SHARDED}")
@@ -1194,7 +1194,7 @@ def headline_phase(torch, dev, peak_key) -> dict:
           f"in {gen_s:.1f} s) | N={N_16K} M={out.partition.m} K={cfg.top_k} p=2 "
           f"steps={cfg.opt_steps} beam=64 refine={cfg.refine_steps} | cut "
           f"{out.cut_value:.0f} of total weight {total_w:.0f} | "
-          + " ".join(f"{k}={v:.3f}s" for k, v in out.timings.items())
+          + stage_line(out)
           + f" | peak memory {peak_gb:.2f} GB | launches {counts} = predicted | "
           f"local search (1 x 300): {ls_rep.cut_value:.0f} in {ls_rep.runtime_s:.3f} s | "
           f"GW (r={gw_rep.extra['rank']}, 250 steps, 64 rounds, lr {lr:.6f} = 1 / mean "
@@ -1234,7 +1234,7 @@ def profile_solve(torch, graph, cfg, first_cut) -> None:
     busy = sum(r[0] for r in rows)
     top = " | ".join(f"{name[:60]} {ms:.1f} ms x{count}" for ms, count, name in rows[:10])
     print(f"[15b where the time goes] the headline solve again (warm, profiled): cut "
-          f"{again.cut_value:.0f}, " + " ".join(f"{k}={v:.3f}s" for k, v in again.timings.items())
+          f"{again.cut_value:.0f}, " + stage_line(again)
           + f" | wall {wall_s:.3f} s | kernels busy "
           + (f"{busy:.1f} ms ({busy / 1e3 / wall_s:.1%} of the wall): {top}" if rows
              else "not measured (the profiler saw no device events)"))
@@ -1360,11 +1360,12 @@ def obs_phase(torch, dev, graph, root) -> None:
     check(not errs, f"trace violations: {errs}")
     names = [s.name for s in tracer.spans]
     steps = ["adam_step"] * cfg.opt_steps
-    check(names == ["partition", "cost_table", *steps, "final_state", "top_k", "solve_pool",
-                    "merge_plan", "merge_scan", "merge", "refine", "report", "solve"],
+    check(names == ["partition", "cost_table", *steps, "final_state", "top_k", "qaoa_round",
+                    "solve_pool", "merge_plan", "merge_scan", "merge", "refine", "report",
+                    "solve"],
           f"span tree {names}")
     timed = [s.name for s in tracer.spans if "device_t0" in s.attrs]
-    check(timed == ["cost_table", *steps, "final_state", "top_k"]
+    check(timed == ["cost_table", *steps, "final_state", "top_k", "qaoa_round"]
           and len(events) == len(records) + len(timed), f"device intervals of {timed}")
     snap = led.snapshot()
     check(snap["builds"] == 0 and snap["compiles"] == 0,
@@ -1394,7 +1395,9 @@ def timed_solve(torch, fn):
 
 
 def stage_line(out) -> str:
-    return " ".join(f"{k}={v:.3f}s" for k, v in out.timings.items())
+    """A solve's timings: the seconds, and the counts of its QAOA rounds."""
+    return " ".join(f"{k}={v:.3f}s" if k.endswith("_s") else f"{k}={v}"
+                    for k, v in out.timings.items())
 
 
 def data_axis_phase(torch, dev, graph400, phase7) -> None:
@@ -3768,7 +3771,7 @@ def main() -> int:
     print(f"[4 solve] G(400, 0.1, seed=0) maxcut N={N_MAIN} K={cfg.top_k} p={p} "
           f"steps={steps}: cut {out.cut_value:.1f} of total weight {total_w:.0f} "
           f"| M={out.partition.m} beam={bw} | "
-          + " ".join(f"{k}={v:.3f}s" for k, v in out.timings.items())
+          + stage_line(out)
           + f" | peak memory {peak_gb:.2f} GB | launches {counts} "
           f"predicted {predicted}")
     check(counts == predicted, f"launch counts {counts} != predicted {predicted}")

@@ -77,12 +77,9 @@ def subgraphs_per_launch(n: int, p: int, opt_steps: int, axis, device) -> int:
     return max(1, int(budget // (per_amp * amps)))
 
 
-def launch_slices(b: int, per_launch: int) -> list[slice]:
-    """``b`` subgraphs in the fewest launches of at most ``per_launch``,
-    as even as they go."""
-    chunks = -(-b // per_launch)
-    size = -(-b // chunks)
-    return [slice(s, min(s + size, b)) for s in range(0, b, size)]
+# ``b`` subgraphs in the fewest launches of at most ``per_launch``, as even
+# as they go: the split of the single-device solve's rounds
+launch_slices = qaoa_mod.round_slices
 
 
 def sharded_qaoa_batch(edges, weights, n: int, gammas, betas, axis,

@@ -5,6 +5,11 @@ Parameter taxonomy (paper §4.2):
   hardware-dependent: n_solvers (N_s), n_qubits (N)
   input-dependent:    m_subgraphs (M = ceil(|V|/(N-1))), rounds (T = ceil(M/N_s))
   tunable:            top_k (K), merge_level (L) / beam_width
+
+On one card the N_s solvers of a round are the rows of one batch, and N_s
+is what the card's memory holds (`qaoa.max_rows_per_round`): the M
+subgraphs run in T = ⌈M / N_s⌉ rounds of ⌈M / T⌉ rows, one round where the
+card holds them all (and always off the card).
 """
 
 from __future__ import annotations
@@ -125,16 +130,27 @@ def checked_value(prob: Problem, assignment: np.ndarray, cut: float,
 
 def traced_timings(spans) -> dict:
     """The parts of a solve's stages, from the spans it recorded: the mean
-    seconds of an Adam step and the seconds of the QAOA's fixed tail (cost
-    table, final state, top-K), each on the card where the span has a
-    device interval, and the merge plan's and scan's host seconds."""
+    seconds of an Adam step, the seconds of the QAOA's fixed tail (cost
+    table, final state, top-K, summed over the rounds), the mean seconds
+    of a QAOA round and the seconds between one round's end and the next
+    one's start, summed, each on the card where the span has a device
+    interval; and the merge plan's and scan's host seconds."""
     steps = [s.device_s for s in spans if s.name == "adam_step"]
+    rounds = [s for s in spans if s.name == "qaoa_round"]
 
     def total(*names):
         return sum(s.device_s for s in spans if s.name in names)
 
+    def start(s):
+        return s.attrs.get("device_t0", s.t0)
+
+    def end(s):
+        return s.attrs.get("device_t1", s.t1)
+
     return {"adam_step_s": sum(steps) / len(steps) if steps else 0.0,
             "qaoa_tail_s": total("cost_table", "final_state", "top_k"),
+            "qaoa_round_s": total("qaoa_round") / len(rounds) if rounds else 0.0,
+            "round_gap_s": sum((start(b) - end(a) for a, b in zip(rounds, rounds[1:])), 0.0),
             "merge_plan_s": total("merge_plan"),
             "merge_scan_s": total("merge_scan")}
 
@@ -150,6 +166,9 @@ def solve(graph: Graph | Problem, cfg: ParaQAOAConfig = ParaQAOAConfig(),
     (each vertex's term to one subproblem) and the merge beam; the reported
     value is the full objective including the offset.
 
+    The subgraphs' QAOA runs in the rounds the card holds
+    (`qaoa.max_rows_per_round`); the timings hold, beside the stages'
+    seconds, ``rounds`` and ``rows_per_round`` (the first round's rows).
     Under a recording tracer the timings also hold `traced_timings`, with
     the device intervals anchored before the partition and resolved after
     the solve's last read.
@@ -168,9 +187,11 @@ def solve(graph: Graph | Problem, cfg: ParaQAOAConfig = ParaQAOAConfig(),
             part = partition or partition_for_solver(graph, cfg.n_qubits)
             sub_lins = split_linear(part, lin_host) if has_lin else None
 
-        # ---- stage 2: every subgraph's QAOA in one batch ------------------
+        # ---- stage 2: every subgraph's QAOA, in rounds the card holds -----
         with tr.span("solve_pool", m=part.m, n_qubits=cfg.n_qubits) as sp_solve:
-            qcfg = cfg.qaoa_config()
+            per_round = qaoa_mod.max_rows_per_round(cfg.n_qubits, cfg.p_layers, dev)
+            qcfg = dataclasses.replace(cfg.qaoa_config(), rows_per_round=per_round)
+            rounds = qaoa_mod.round_slices(part.m, per_round)
             edges, weights, masks = qaoa_mod.pad_subgraph_arrays(
                 part.subgraphs, qcfg.n_qubits, device=dev)
             linears = (qaoa_mod.pad_linear_arrays(sub_lins, qcfg.n_qubits,
@@ -200,6 +221,8 @@ def solve(graph: Graph | Problem, cfg: ParaQAOAConfig = ParaQAOAConfig(),
         "merge_s": sp_merge.duration_s,
         "refine_s": sp_refine.duration_s,
         "total_s": root.duration_s,
+        "rounds": len(rounds),
+        "rows_per_round": rounds[0].stop,
     }
     if tr.record:
         timings.update(traced_timings(tr.spans[first:]))

@@ -498,10 +498,11 @@ def test_a_capture_under_a_recording_tracer_records_no_event(cuda_device):
 
 def test_traced_solve_places_device_intervals_inside_their_stage(cuda_device):
     """A traced solve at a small size: every device interval lies inside
-    its parent's host interval (``solve_pool``); on the card the cost
-    table, the steps in step order, the final state and the top-K run one
-    after another without overlap; the parts close on the QAOA stage and
-    the merge's on the merge."""
+    its parent's host interval (``solve_pool`` for the one QAOA round); on
+    the card the round holds its cost table, the steps in step order, the
+    final state and the top-K, which run one after another without
+    overlap; the parts close on the QAOA stage and the merge's on the
+    merge."""
     from repro_torch.core import graph, paraqaoa
     from repro_torch.obs import trace
 
@@ -512,18 +513,22 @@ def test_traced_solve_places_device_intervals_inside_their_stage(cuda_device):
     with trace.use_tracer(tr):
         out = paraqaoa.solve(g, cfg, device=cuda_device)
     by_id = {s.span_id: s for s in tr.spans}
-    timed = sorted((s for s in tr.spans if "device_t0" in s.attrs),
+    (rnd,) = [s for s in tr.spans if s.name == "qaoa_round"]
+    timed = sorted((s for s in tr.spans if "device_t0" in s.attrs and s is not rnd),
                    key=lambda s: s.attrs["device_t0"])
     assert [s.name for s in timed] == (["cost_table"] + ["adam_step"] * cfg.opt_steps
                                        + ["final_state", "top_k"])
     assert [s.attrs["step"] for s in timed[1:-2]] == list(range(cfg.opt_steps))
-    for s in timed:
+    for s in timed + [rnd]:
         parent = by_id[s.parent_id]
-        assert parent.name == "solve_pool"
+        assert parent.name == ("solve_pool" if s is rnd else "qaoa_round")
         assert parent.t0 <= s.attrs["device_t0"] <= s.attrs["device_t1"] <= parent.t1
     for a, b in zip(timed, timed[1:]):
         assert a.attrs["device_t1"] <= b.attrs["device_t0"]
+    assert (rnd.attrs["device_t0"] <= timed[0].attrs["device_t0"]
+            and timed[-1].attrs["device_t1"] <= rnd.attrs["device_t1"])
     t = out.timings
+    assert (t["rounds"], t["round_gap_s"], t["qaoa_round_s"]) == (1, 0, rnd.device_s)
     assert cfg.opt_steps * t["adam_step_s"] + t["qaoa_tail_s"] <= t["solve_s"]
     assert t["merge_plan_s"] + t["merge_scan_s"] <= t["merge_s"]
     assert not any("device_t0" in s.attrs for s in tr.spans

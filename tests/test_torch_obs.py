@@ -4,7 +4,7 @@ package's, on the CPU.
 - the span tree of a solve, under a recording tracer on an injected
   counter clock, holds the JAX solve's: restricted to the JAX span names,
   the same names, parents, attributes and order, `refine` included; the
-  port's own tree (the QAOA's and the merge's parts, a span an Adam step)
+  port's own tree (the QAOA's rounds and parts, a span an Adam step, the merge's parts)
   is pinned, with the timings a recording tracer adds;
 - device spans: intervals from a fake event source resolve onto the
   tracer's clock and export on a track of their own; no CUDA event is
@@ -111,20 +111,23 @@ SOLVE_TREE = [  # (name, parent, attrs) in start order: 5 subgraphs, 3 steps
     ("solve", None, {"n": 30, "n_edges": 139}),
     ("partition", "solve", {"n_qubits": 8}),
     ("solve_pool", "solve", {"m": 5, "n_qubits": 8}),
-    ("cost_table", "solve_pool", {}),
-    ("adam_step", "solve_pool", {"step": 0}),
-    ("adam_step", "solve_pool", {"step": 1}),
-    ("adam_step", "solve_pool", {"step": 2}),
-    ("final_state", "solve_pool", {}),
-    ("top_k", "solve_pool", {}),
+    ("qaoa_round", "solve_pool", {"round": 0, "rows": 5}),
+    ("cost_table", "qaoa_round", {}),
+    ("adam_step", "qaoa_round", {"step": 0}),
+    ("adam_step", "qaoa_round", {"step": 1}),
+    ("adam_step", "qaoa_round", {"step": 2}),
+    ("final_state", "qaoa_round", {}),
+    ("top_k", "qaoa_round", {}),
     ("merge", "solve", {"m": 5}),
     ("merge_plan", "merge", {}),
     ("merge_scan", "merge", {}),
     ("refine", "solve", {"steps": 5}),
     ("report", "solve", {}),
 ]
-STAGE_KEYS = ["merge_s", "partition_s", "refine_s", "solve_s", "total_s"]
-PART_KEYS = ["adam_step_s", "merge_plan_s", "merge_scan_s", "qaoa_tail_s"]
+STAGE_KEYS = ["merge_s", "partition_s", "refine_s", "rounds", "rows_per_round", "solve_s",
+              "total_s"]
+PART_KEYS = ["adam_step_s", "merge_plan_s", "merge_scan_s", "qaoa_round_s", "qaoa_tail_s",
+             "round_gap_s"]
 
 
 def test_solve_span_tree_of_the_port():
@@ -144,12 +147,64 @@ def test_solve_span_tree_of_the_port():
     assert out.timings["qaoa_tail_s"] == dur["cost_table"] + dur["final_state"] + dur["top_k"]
     assert (out.timings["merge_plan_s"], out.timings["merge_scan_s"]) == (
         dur["merge_plan"], dur["merge_scan"])
+    assert (out.timings["qaoa_round_s"], out.timings["round_gap_s"]) == (dur["qaoa_round"], 0)
+    assert (out.timings["rounds"], out.timings["rows_per_round"]) == (1, 5)
     assert out.timings["total_s"] == dur["solve"]
     assert sorted(out.timings) == sorted(STAGE_KEYS + PART_KEYS)
     _both_validate(tr.to_jsonl())
     assert out.qaoa.probs.shape == (5, cfg.top_k) and out.qaoa.gammas.shape == (5, 3)
     assert np.array_equal(out.qaoa.bitstrings.numpy(), out.candidates)
     assert sorted(tpara.solve(g, cfg, device="cpu").timings) == STAGE_KEYS
+
+
+def test_qaoa_round_spans_of_a_solve_in_rounds(monkeypatch):
+    """Rounds of 3 rows on 5 subgraphs: two ``qaoa_round`` spans under
+    ``solve_pool``, each with its round and rows and the round's cost table,
+    steps, final state and top-K under it; ``rounds`` and ``rows_per_round``
+    in the timings and the report; the traced round timings from the spans
+    (on a counter clock, a tick between one round's end and the next one's
+    start)."""
+    from repro_torch.core import qaoa as tqaoa
+
+    monkeypatch.setattr(tqaoa, "max_rows_per_round", lambda n, p, device: 3)
+    g = tgraph.Graph.erdos_renyi(30, 0.3, seed=1)
+    cfg = tpara.ParaQAOAConfig(n_qubits=8, opt_steps=2)
+    tr = ttrace.Tracer(clock=_counter(), record=True)
+    with ttrace.use_tracer(tr):
+        out = tpara.solve(g, cfg, device="cpu")
+    by_id = {s.span_id: s for s in tr.spans}
+    rounds = [s for s in tr._sorted() if s.name == "qaoa_round"]
+    assert [(by_id[s.parent_id].name, s.attrs) for s in rounds] == [
+        ("solve_pool", {"round": 0, "rows": 3}), ("solve_pool", {"round": 1, "rows": 2})]
+    for r in rounds:
+        assert [s.name for s in tr._sorted() if s.parent_id == r.span_id] == [
+            "cost_table", "adam_step", "adam_step", "final_state", "top_k"]
+    assert not any(by_id[s.parent_id].name == "solve_pool" for s in tr.spans
+                   if s.name in ("cost_table", "adam_step", "final_state", "top_k"))
+    t = out.timings
+    assert (t["rounds"], t["rows_per_round"]) == (2, 3)
+    assert (out.report.extra["rounds"], out.report.extra["rows_per_round"]) == (2, 3)
+    assert t["qaoa_round_s"] == sum(s.duration_s for s in rounds) / 2
+    assert t["round_gap_s"] == rounds[1].t0 - rounds[0].t1 == 1
+    assert t["qaoa_tail_s"] == sum(s.duration_s for s in tr.spans
+                                   if s.name in ("cost_table", "final_state", "top_k"))
+    _both_validate(tr.to_jsonl())
+
+
+def test_traced_round_timings_read_the_device_intervals():
+    """Where the rounds have device intervals, the round time and the gaps
+    between rounds are the card's, not the host's."""
+    spans = []
+    for i, (h0, h1, d0, d1) in enumerate([(0.0, 1.0, 5.0, 7.0), (1.5, 2.0, 7.25, 9.25),
+                                          (2.5, 3.0, 9.75, 11.75)]):
+        s = ttrace.Span(i + 1, None, "qaoa_round", h0, {"round": i, "rows": 16,
+                                                         "device_t0": d0, "device_t1": d1})
+        s.t1 = h1
+        spans.append(s)
+    t = tpara.traced_timings(spans)
+    assert (t["qaoa_round_s"], t["round_gap_s"]) == (2.0, 0.75)
+    assert tpara.traced_timings(spans[:1])["round_gap_s"] == 0
+    assert tpara.traced_timings([])["qaoa_round_s"] == 0.0
 
 
 class _FakeEvent:
@@ -402,9 +457,9 @@ def test_cli_trace_out(tmp_path, capsys, fmt):
     solve_maxcut.run(["--device", "cpu", "--n", "24", "--qubits", "8", "--opt-steps", "1",
                       "--refine", "5", "--problem", "mis", "--trace-out", str(path),
                       "--trace-format", fmt])
-    # solve, partition, solve_pool (cost table, one Adam step, final state,
-    # top-K), merge (plan, scan), refine, report
-    assert f"[maxcut] trace ({fmt}, 12 spans)" in capsys.readouterr().out
+    # solve, partition, solve_pool (one QAOA round: cost table, one Adam
+    # step, final state, top-K), merge (plan, scan), refine, report
+    assert f"[maxcut] trace ({fmt}, 13 spans)" in capsys.readouterr().out
     if fmt == "jsonl":
         _both_validate(path.read_text())
         assert tvalidate.main(["--trace", str(path)]) == 0
