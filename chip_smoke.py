@@ -520,6 +520,89 @@ def kernel_cut_batch_dense(torch, dev, peak_key, record, results) -> None:
           + f" || ptxas: {'; '.join(spills) or 'no spill lines'}")
 
 
+# the reversed fused pass with the layer's gradients, phase 2: (B, R, k) of
+# the N = 26 layer's fused pass on the benchmark's 16 rows, and the N_MAIN
+# layer's on B_MAIN rows (`ops.layer_passes`: k = 12 and 10)
+FUSED_GRAD_SHAPES = ((16, 2**14, 12), (B_MAIN, 2**14, 10))
+
+
+def fused_grads_phase(torch, dev, mem_bw) -> list:
+    """Phase 2's reversed fused pass with the gradients
+    (`fused_layer.fused_layer_grads`) at FUSED_GRAD_SHAPES: timed beside the
+    forward pass and the reversed pass without them (bounds 28 and 20 B an
+    amplitude), and held on rows [0, 2) to `ref.layer_grads_split` from the
+    pass's own w (the reversed pass at γ = 0): ∂β within BETA_GRAD_RTOL · S,
+    ∂γ within 1e-5 of Σ|c|·(|im·ḡre| + |re·ḡim|) a row, its planes those of
+    the pass without the gradients, every output bitwise on a rerun and
+    for the two rows alone. Returns one line a shape."""
+    from repro_torch.kernels import betagrad, fused_layer, ref
+
+    lines = []
+    for b, r, k in FUSED_GRAD_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(1000 + k)
+        shape = (b, r, 2**k)
+        scale = 2.0 ** (-((r << k).bit_length() - 1) / 2)  # unit-norm rows, about
+        d_re, d_im, re, im = (scale * torch.randn(shape, generator=gen, device=dev)
+                              for _ in range(4))
+        cutv = torch.randint(0, 60, shape, generator=gen, device=dev).float()
+        gamma, beta = (2 * torch.rand(b, generator=gen, device=dev) - 1 for _ in range(2))
+        tiles = fused_layer.grad_tiles(r, k, dev)
+
+        def grads(rows=slice(None)):
+            n_rows = len(range(b)[rows])
+            bp = torch.empty((n_rows, tiles), dtype=torch.float64, device=dev)
+            gp = torch.empty_like(bp)
+            planes = fused_layer.fused_layer_grads(
+                d_re[rows], d_im[rows], cutv[rows], -gamma[rows], -beta[rows], k,
+                re[rows], im[rows], bp, gp)
+            return (*planes, betagrad.final_sum(gp), betagrad.final_sum(bp))
+
+        args = (d_re, d_im, cutv, -gamma, -beta, k)
+        amps = b * r * 2**k
+        fwd = time_ms(torch, lambda: fused_layer.fused_phase_mixer_group(*args), 10)
+        rev = time_ms(torch, lambda: fused_layer.fused_phase_mixer_group(*args, reverse=True),
+                      10)
+        with_grads = time_ms(torch, grads, 10)
+        got = grads()
+        check(all(torch.equal(x, y) for x, y in zip(got, grads())),
+              f"fused_layer_grads {shape} is not bitwise repeatable")
+        part = grads(slice(0, 2))
+        check(all(torch.equal(x, y[:2]) for x, y in zip(part, got)),
+              f"fused_layer_grads {shape}: rows [0, 2) differ alone and in the batch")
+        plain_rev = fused_layer.fused_phase_mixer_group(*args, reverse=True)
+        plane_err = max(float((x - y).abs().max()) for x, y in zip(got[:2], plain_rev))
+        del plain_rev
+        w = fused_layer.fused_phase_mixer_group(
+            d_re[:2], d_im[:2], cutv[:2], torch.zeros_like(gamma[:2]), -beta[:2], k,
+            reverse=True)
+        w = [t.reshape(2, -1) for t in w]
+        flat = [t[:2].reshape(2, -1) for t in (re, im, cutv)]
+        want_gamma, want_beta = ref.layer_grads_split(*w, *flat, gamma[:2], k)
+        v = ref.apply_phase(*flat, gamma[:2])
+        tol = betagrad.tolerance(*w, *v, 0, k)
+        beta_err = (got[3][:2] - want_beta).abs()
+        check(bool((beta_err <= tol).all()), f"fused_layer_grads {shape}: ∂β errors "
+              f"{beta_err.tolist()} above {tol.tolist()}")
+        g_re, g_im = (t[:2].reshape(2, -1) for t in got[:2])
+        g_scale = (flat[2].abs() * ((flat[1] * g_re).abs() + (flat[0] * g_im).abs())).sum(-1)
+        gamma_rel = float(((got[2][:2] - want_gamma).abs() / g_scale).max())
+        check(gamma_rel <= 1e-5, f"fused_layer_grads {shape}: ∂γ max err {gamma_rel} of "
+              "sum|c t| > 1e-5")
+        check(plane_err <= 1e-6, f"fused_layer_grads {shape}: planes {plane_err} from the "
+              "reversed pass's")
+        del got, part, w, flat, v, g_re, g_im, d_re, d_im, re, im, cutv
+        torch.cuda.empty_cache()
+        lines.append(
+            f"[2 kernel fused_layer_grads] view {shape} k={k} | forward {fwd:.3f} ms, "
+            f"reversed {rev:.3f} ms (bound {20 * amps / mem_bw * 1e3:.3f} ms, 20 B), with "
+            f"the gradients {with_grads:.3f} ms (bound {28 * amps / mem_bw * 1e3:.3f} ms, "
+            f"28 B: {2800 * amps / mem_bw * 1e3 / with_grads:.1f}%) | rows [0, 2) against "
+            f"ref.layer_grads_split: ∂β max err {float(beta_err.max()):.3g} (tol "
+            f"{float(tol.min()):.3g}), ∂γ {gamma_rel:.3g} of sum|c t| (tol 1e-5), planes "
+            f"{plane_err:.3g} from the reversed pass's; bitwise on a rerun and rows alone")
+    return lines
+
+
 def predicted_sharded_launches(ops, dist_mod, axis, sizes, p, opt_steps, dev):
     """Launches of one sharded solve, per kernel, from the code's own
     rules: per launch of `sharded_qaoa_batch` (a group of same-n subgraphs
@@ -546,8 +629,9 @@ def predicted_solve_launches(cfg) -> dict:
     """Launches of one single-device solve, per kernel, from the code's own
     rules: 1 ``cutvals``; per Adam step a forward and a backward of p
     layers, each 1 fused + one strided per group of `ops.layer_passes`,
-    and 1 expectation, p ∂β and p ∂γ; then the final evolve and
-    expectation."""
+    and 1 expectation; a layer backward's reversed fused pass writes ∂γ
+    and the ∂β of its qubits, and one ∂β call takes the strided qubits
+    where there are any; then the final evolve and expectation."""
     from repro_torch.kernels import ops
 
     p, steps = cfg.p_layers, cfg.opt_steps
@@ -561,8 +645,9 @@ def predicted_solve_launches(cfg) -> dict:
         "expectation": steps + 1,
         "apply_phase": 0,
         "cut_batch_dense": 0,
-        "beta_grad": steps * p,  # one a layer backward, p a step
-        "phase_grad": steps * p,  # likewise
+        "beta_grad": steps * p if groups_above else 0,  # one a layer backward
+        "phase_grad": 0,
+        "fused_layer_grads": steps * p,  # likewise
     }
 
 
@@ -3479,6 +3564,8 @@ def main() -> int:
               + (f" | recorded: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
                  f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})" if k == f_main else ""))
     torch.cuda.empty_cache()
+    for line in fused_grads_phase(torch, dev, mem_bw):
+        print(line)
 
     # the strided groups of the N_MAIN layer, then those of `ops.apply_mixer`
     # above its trailing group (the sharded path's local mixes)
@@ -3746,13 +3833,17 @@ def main() -> int:
         parts.append(f"{name}: " + ", ".join(f"d_{k} {e:.2g}" for k, e in errs.items()))
     bg_launches = ops.launch_counts()["beta_grad"]
     check(bg_launches == 2, f"{bg_launches} beta_grad launches in phase 3, expected 2 "
-          "(the layer's backward and the mixer group's)")
+          "(the layer's backward over its strided qubits and the mixer group's)")
     pg_launches = ops.launch_counts()["phase_grad"]
-    check(pg_launches == 2, f"{pg_launches} phase_grad launches in phase 3, expected 2 "
-          "(the layer's backward and the phase's)")
+    check(pg_launches == 1, f"{pg_launches} phase_grad launches in phase 3, expected 1 "
+          "(the phase's)")
+    fg_launches = ops.launch_counts()["fused_layer_grads"]
+    check(fg_launches == 1, f"{fg_launches} fused_layer_grads launches in phase 3, "
+          "expected 1 (the layer's backward)")
     print(f"[3 grads] B={bg} n={ng}, per-row angles, max rel err vs plain autograd "
-          f"(tol 1e-4), dbeta through the beta_grad kernel ({bg_launches} launches), "
-          f"dgamma through the phase_grad kernel ({pg_launches}) | " + " | ".join(parts))
+          f"(tol 1e-4), dbeta through the beta_grad kernel ({bg_launches} launches) and "
+          f"the layer's reversed fused pass ({fg_launches}), dgamma through the latter and "
+          f"the phase_grad kernel ({pg_launches}) | " + " | ".join(parts))
     del base, w_re, w_im
     torch.cuda.empty_cache()
 

@@ -10,8 +10,9 @@ unchanged one is loaded as built. Nothing here runs at import time.
 A source may export more than one entry point (``cutvals.cu`` has the
 table pass, the full-range fill and the indexed form; ``cutbatch.cu`` the
 split pass and the product; ``betagrad.cu`` the reads of one or two groups
-and the final sum). Each wrapper bumps its op's count in
-`launches` once per call that launches its kernels.
+and the final sum; ``fused_layer.cu`` the fused pass, its reversed form
+with the layer's gradients, and the trailing mixer). Each wrapper bumps
+its op's count in `launches` once per call that launches its kernels.
 
 Each source built or loaded is a ``build`` event in the build ledger
 (`obs.ledger`): its key the source hash, its duration the time from its
@@ -64,6 +65,8 @@ SIGNATURES = {
                    [P, P, P, P, I64, I64, I64, I32, I64, P]),
     "fused_layer": ("fused_layer", "pq_fused_phase_mixer",
                     [P, P, P, P, P, P, P, I64, I64, I32, I32, I64, P]),
+    "fused_layer_grads": ("fused_layer", "pq_fused_layer_grads",
+                          [P] * 11 + [I64, I64, I64, I32, I64, P]),
     "mixer_trailing": ("fused_layer", "pq_mixer_trailing",
                        [P, P, P, P, P, I64, I64, I32, I64, P]),
     "mixer": ("mixer", "pq_mixer_strided",

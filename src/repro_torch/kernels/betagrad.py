@@ -21,6 +21,11 @@ planes and ``torch.sum``); `ref.beta_grad_split` mirrors the kernel's
 decomposition on the CPU. No knob: the tile is the shared memory a CTA
 stages.
 
+The layer backward takes ∂β of the qubits the fused pass holds from that
+pass (`fused_layer.fused_layer_grads`, at the mixer's input), and of the
+rest from here: it hands `beta_grad_partials` its own partial buffer,
+whose head the fused pass fills, and `final_sum` sums each row of it.
+
 Tolerance: ``BETA_GRAD_RTOL · S`` a row against the plain version, with
 S = Σ_x Σ_q (|d_ore·oim'| + |d_oim·ore'|) (`tolerance`). The two sum the
 same products in another order. The kernel rounds each term at most 6
@@ -47,30 +52,40 @@ def tolerance(d_ore, d_oim, ore, oim, lo_bit: int, nbits: int) -> torch.Tensor:
     return BETA_GRAD_RTOL * s
 
 
-def beta_grad(d_ore: torch.Tensor, d_oim: torch.Tensor, ore: torch.Tensor,
-              oim: torch.Tensor, lo_bit: int, nbits: int) -> torch.Tensor:
-    """(B,) f32 ∂β over qubits [lo_bit, lo_bit + nbits) of (B, 2^n) planes;
-    the kernel for CUDA tensors, the plain version for CPU tensors."""
-    if not _build.on_cuda(ore):
-        return ref.beta_grad(d_ore, d_oim, ore, oim, lo_bit, nbits)
-    b, dim = ore.shape
-    dev = ore.device
+def _width(dim: int, lo_bit: int, nbits: int) -> int:
+    """n of a row of ``dim`` = 2^n amplitudes, which qubits [lo_bit, lo_bit
+    + nbits) must lie in."""
     n = dim.bit_length() - 1
     if dim != 2**n or lo_bit < 0 or nbits < 1 or lo_bit + nbits > n:
         raise ValueError(f"qubits [{lo_bit}, {lo_bit + nbits}) outside a state of "
                          f"width {dim}")
+    return n
+
+
+def parts_per_row(n: int, lo_bit: int, nbits: int) -> int:
+    """Partials a row of the reads of `ref.beta_grad_launches`."""
+    return sum(ref.beta_pass_tiles(n, p)[1] for p in ref.beta_grad_groups(lo_bit, nbits))
+
+
+def beta_grad_partials(d_ore, d_oim, ore, oim, lo_bit: int, nbits: int,
+                       partial: torch.Tensor, part0: int = 0) -> None:
+    """The kernel's reads over qubits [lo_bit, lo_bit + nbits) of (B, 2^n)
+    CUDA planes, their partials into columns [part0, part0 +
+    `parts_per_row`) of ``partial`` (B, P) f64; one count a call."""
+    b, dim = ore.shape
+    dev = ore.device
+    n = _width(dim, lo_bit, nbits)
     for t, name in ((d_ore, "d_ore"), (d_oim, "d_oim"), (ore, "ore"), (oim, "oim")):
         _build.require(t, name, torch.float32, (b, dim), dev)
-    launches = [[(p, *ref.beta_pass_tiles(n, p)) for p in launch]
-                for launch in ref.beta_grad_launches(lo_bit, nbits)]
-    parts = sum(row_parts for launch in launches for _, _, row_parts in launch)
-    partial = torch.empty((b, parts), dtype=torch.float64, device=dev)
-    out = torch.empty((b,), dtype=torch.float32, device=dev)
+    parts = partial.shape[1]
+    _build.require(partial, "partial", torch.float64, (b, parts), dev)
+    if part0 + parts_per_row(n, lo_bit, nbits) > parts:
+        raise ValueError(f"{parts} partials a row leave no room past column {part0}")
     st = _build.stream(dev)
-    part0 = 0
-    for launch in launches:
+    for launch in ref.beta_grad_launches(lo_bit, nbits):
         args = []
-        for p, slabs, row_parts in launch:
+        for p in launch:
+            slabs, row_parts = ref.beta_pass_tiles(n, p)
             args += [p.g0, p.k, p.lanes, slabs, part0]
             part0 += row_parts
         args += [0] * (10 - len(args))  # no second group
@@ -78,7 +93,28 @@ def beta_grad(d_ore: torch.Tensor, d_oim: torch.Tensor, ore: torch.Tensor,
             d_ore.data_ptr(), d_oim.data_ptr(), ore.data_ptr(), oim.data_ptr(),
             partial.data_ptr(), b, n, parts, len(launch), *args, st)
         _build.check(rc, "beta_grad_pass")
-    rc = _build.entry("beta_grad_final")(partial.data_ptr(), out.data_ptr(), b, parts, st)
-    _build.check(rc, "beta_grad_final")
     _build.count_launch("beta_grad")
+
+
+def final_sum(partial: torch.Tensor) -> torch.Tensor:
+    """(B,) f32: each row of the (B, P) f64 partials summed in a fixed
+    order in f64, rounded once."""
+    b, parts = partial.shape
+    out = torch.empty((b,), dtype=torch.float32, device=partial.device)
+    rc = _build.entry("beta_grad_final")(partial.data_ptr(), out.data_ptr(), b, parts,
+                                         _build.stream(partial.device))
+    _build.check(rc, "beta_grad_final")
     return out
+
+
+def beta_grad(d_ore: torch.Tensor, d_oim: torch.Tensor, ore: torch.Tensor,
+              oim: torch.Tensor, lo_bit: int, nbits: int) -> torch.Tensor:
+    """(B,) f32 ∂β over qubits [lo_bit, lo_bit + nbits) of (B, 2^n) planes;
+    the kernel for CUDA tensors, the plain version for CPU tensors."""
+    if not _build.on_cuda(ore):
+        return ref.beta_grad(d_ore, d_oim, ore, oim, lo_bit, nbits)
+    n = _width(ore.shape[1], lo_bit, nbits)
+    partial = torch.empty((ore.shape[0], parts_per_row(n, lo_bit, nbits)),
+                          dtype=torch.float64, device=ore.device)
+    beta_grad_partials(d_ore, d_oim, ore, oim, lo_bit, nbits, partial)
+    return final_sum(partial)

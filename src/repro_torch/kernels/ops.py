@@ -12,10 +12,13 @@ same kernels at negated angles:
 
 - `apply_layer` (``_layer_vjp``, ops.py:407-451): the strided mixer
   groups at −β in reverse order, then the fused kernel in ``reverse``
-  mode at (−γ, −β); ∂β from the generator contraction over all n qubits
-  of the layer output (`betagrad.beta_grad`, a kernel of its own: the JAX
-  package leaves it to XLA), ∂γ from the phase rule on the layer input
-  (`phase.phase_grad`, likewise).
+  mode at (−γ, −β); ∂β from the generator contraction over all n qubits,
+  ∂γ from the phase rule on the layer input (the JAX package leaves both
+  to XLA). On the card the reversed fused pass computes ∂γ and the ∂β of
+  its own qubits at the mixer's input (`fused_layer.fused_layer_grads`),
+  and `betagrad` the ∂β of the strided qubits on the layer output; on the
+  CPU the plain versions take the whole of each (`ref.beta_grad`,
+  `ref.phase_grad`).
 - `apply_mixer_bits` (``_mixer_bits_vjp``, ops.py:302-330): the group at −β;
   ∂β over the group's qubits, as for the layer.
 - `expectation` (``_expectation_vjp``, ops.py:467-486): closed form.
@@ -57,6 +60,7 @@ KERNELS = (
     "cut_batch_dense",
     "beta_grad",
     "phase_grad",
+    "fused_layer_grads",  # reversed fused launches that wrote the gradients
 )
 
 
@@ -222,7 +226,7 @@ def layer_passes(n: int, group: int, widest: int = FUSED_MAX_K):
     return f, tuple((g0, min(group, n - g0)) for g0 in range(f, n, group))
 
 
-def passes_on(x, n: int, group: int):
+def passes_on(x, n: int, group: int) -> tuple[int, tuple[tuple[int, int], ...]]:
     """The passes a layer runs on ``x``'s device: `layer_passes` on a CUDA
     tensor, whose fused pass takes up to FUSED_MAX_K qubits; elsewhere the
     reference's split (the plain versions build each pass's 2^k × 2^k
@@ -259,6 +263,31 @@ def _layer_adjoint_dispatch(n, group, re, im, cutv, gamma, beta):
     return re_m.reshape(b, -1), im_m.reshape(b, -1)
 
 
+def _layer_backward_on_card(n: int, group: int, d_ore, d_oim, re, im, ore, oim,
+                            cutv, gamma, beta):
+    """(g_re, g_im, ∂γ, ∂β) of one layer on the card. ∂β of the strided
+    qubits [f, n) on the layer output (`betagrad`), the strided groups at
+    −β in reverse order, then the reversed fused pass with the gradients:
+    ∂γ, and ∂β of qubits [0, f) at the mixer's input. Its ∂β partials head
+    the row that `betagrad`'s follow, so each row sums in one fixed order."""
+    b = re.shape[0]
+    k, groups = passes_on(re, n, group)
+    view = (b, -1, 2**k)
+    tiles = fused_layer.grad_tiles(2 ** (n - k), k, re.device)
+    strided = betagrad.parts_per_row(n, k, n - k) if k < n else 0
+    beta_part = torch.empty((b, tiles + strided), dtype=torch.float64, device=re.device)
+    gamma_part = torch.empty((b, tiles), dtype=torch.float64, device=re.device)
+    if k < n:
+        betagrad.beta_grad_partials(d_ore, d_oim, ore, oim, k, n - k, beta_part, tiles)
+    for g0, nbits in reversed(groups):
+        d_ore, d_oim = mixer.apply_mixer_bits(d_ore, d_oim, n, g0, nbits, -beta)
+    g_re, g_im = fused_layer.fused_layer_grads(
+        d_ore.reshape(view), d_oim.reshape(view), cutv.reshape(view), -gamma, -beta, k,
+        re.reshape(view), im.reshape(view), beta_part, gamma_part)
+    return (g_re.reshape(b, -1), g_im.reshape(b, -1), betagrad.final_sum(gamma_part),
+            betagrad.final_sum(beta_part))
+
+
 class _Layer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, re, im, cutv, gamma, beta, n, group):
@@ -274,13 +303,17 @@ class _Layer(torch.autograd.Function):
         n, group = ctx.n, ctx.group
         # a cotangent may arrive strided (``out.sum()`` gives an expanded one)
         d_ore, d_oim = d_ore.contiguous(), d_oim.contiguous()
-        # the full n-qubit mixer acts last: ∂β contracts on the output
-        d_beta = betagrad.beta_grad(d_ore, d_oim, ore, oim, 0, n)
-        g_re, g_im = _layer_adjoint_dispatch(n, group, d_ore, d_oim, cutv,
-                                             gamma, beta)
-        # ∂γ and ∂cutv from the phase rule on the layer input; ∂γ through
-        # `phase.phase_grad`, whose bits do not depend on the batch
-        d_gamma = phase.phase_grad(re, im, g_re, g_im, cutv)
+        if _build.on_cuda(re):
+            g_re, g_im, d_gamma, d_beta = _layer_backward_on_card(
+                n, group, d_ore, d_oim, re, im, ore, oim, cutv, gamma, beta)
+        else:
+            # the full n-qubit mixer acts last: ∂β contracts on the output
+            d_beta = betagrad.beta_grad(d_ore, d_oim, ore, oim, 0, n)
+            g_re, g_im = _layer_adjoint_dispatch(n, group, d_ore, d_oim, cutv,
+                                                 gamma, beta)
+            # ∂γ from the phase rule on the layer input
+            d_gamma = phase.phase_grad(re, im, g_re, g_im, cutv)
+        # ∂cutv from the phase rule on the layer input
         d_cutv = (gamma[:, None] * (im * g_re - re * g_im)
                   if ctx.needs_input_grad[2] else None)
         return g_re, g_im, d_cutv, d_gamma, d_beta, None, None

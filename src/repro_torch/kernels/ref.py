@@ -403,3 +403,36 @@ def beta_grad_split(d_ore, d_oim, ore, oim, lo_bit: int, nbits: int):
             slots = [slots[i] + slots[i + 1] for i in range(0, len(slots), 2)]
         total += slots[0].to(torch.float64).sum(dim=(1, 2, 3))
     return total.to(torch.float32)
+
+
+def layer_grads_split(w_re, w_im, re, im, cutv, gamma, k: int):
+    """(∂γ, ∂β over qubits [0, k)) (B,) f32 of one layer, as the reversed
+    fused pass with the layer's gradients computes them at the mixer's
+    input, from w = U_M^† d (the output's cotangent with every qubit's RX
+    undone) and the layer's input (re, im) on (B, 2^n) planes, γ (B,).
+    There v = e^{-iγc}·in (`apply_phase`), the state before the mixer, and
+    g = e^{iγc}·w, the pass's output. X_q commutes with every RX factor, so
+    Im⟨d|X_q|o⟩ at the output is Im⟨w|X_q|v⟩ here:
+
+        ∂γ = Σ_x c·(im·g_re − re·g_im)
+        ∂β = Σ_x Σ_{q<k} (w_re·v_im[x ⊕ 2^q] − w_im·v_re[x ⊕ 2^q])
+
+    Each term in f32 as written; an amplitude's ∂β terms at leaves 0..k−1
+    of the kernel's pairwise tree of BETA_SLOTS leaves (zeros at the
+    others); each sum in f64 per row, rounded once to f32. The f64 order is
+    torch's, not the kernel's, as in `beta_grad_split`."""
+    b = re.shape[0]
+    v_re, v_im = apply_phase(re, im, cutv, gamma)
+    g_re, g_im = apply_phase(w_re, w_im, cutv, -gamma)
+    d_gamma = (cutv * (im * g_re - re * g_im)).to(torch.float64).sum(-1)
+
+    def flip(t, q):
+        return t.reshape(b, -1, 2, 2**q).flip(2).reshape(t.shape)
+
+    slots = [torch.zeros_like(w_re)] * BETA_SLOTS
+    for q in range(k):
+        slots[q] = w_re * flip(v_im, q) - w_im * flip(v_re, q)
+    while len(slots) > 1:
+        slots = [slots[i] + slots[i + 1] for i in range(0, len(slots), 2)]
+    d_beta = slots[0].to(torch.float64).sum(-1)
+    return d_gamma.to(torch.float32), d_beta.to(torch.float32)

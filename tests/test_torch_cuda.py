@@ -12,7 +12,8 @@ weights (every sum is an exact integer); the table-lookup ``cutvals`` and
 ``cutvals_at`` and the tensor-core ``cut_batch_dense`` add real weights in
 another order than their plain versions, so there they are held to their
 stated tolerances and bitwise to their CPU mirrors; the ∂β kernel to
-``BETA_GRAD_RTOL · S`` and bitwise across launches.
+``BETA_GRAD_RTOL · S`` and bitwise across launches, and the reversed fused
+pass with the layer's gradients likewise to `ref.layer_grads_split`.
 """
 
 import numpy as np
@@ -210,7 +211,8 @@ def test_layer_counts_one_launch_per_kernel_call(cuda_device):
     assert ops.launch_counts() == {
         "cutvals": 0, "cutvals_at": 0, "fused_phase_mixer_group": 1,
         "mixer_group_strided": 3, "mixer_group_trailing": 1, "expectation": 1,
-        "apply_phase": 0, "cut_batch_dense": 0, "beta_grad": 0, "phase_grad": 0}
+        "apply_phase": 0, "cut_batch_dense": 0, "beta_grad": 0, "phase_grad": 0,
+        "fused_layer_grads": 0}
 
 
 def _card_inputs(n, b, seed, dev):
@@ -276,9 +278,57 @@ def test_layer_at_26_qubits_matches_the_plain_path(cuda_device, monkeypatch):
     assert bool(((got_g[3] - want_g[3]).abs() <= tol).all())
 
 
+@pytest.mark.parametrize("n", [12, 14, 24, 26])
+def test_fused_layer_grads_match_the_mirror_and_repeat_bitwise(cuda_device, n):
+    """The reversed fused pass with the gradients, at the width the layer
+    runs it (`ops.layer_passes`: k = 12, 7, 10, 12), against
+    `ref.layer_grads_split` on the same card from the pass's own w (the
+    reversed pass at γ = 0) : ∂β over qubits [0, k) within
+    ``BETA_GRAD_RTOL · S``, ∂γ within 1e-5 of Σ|c|·(|im·ḡre| + |re·ḡim|) a
+    row, the planes those of the pass without the gradients; the same bits
+    on a rerun, and for rows alone as in the batch."""
+    b = 3
+    k = ops.layer_passes(n, 7)[0]
+    re, im, cutv, g, beta = _card_inputs(n, b, 40 + n, cuda_device)
+    d_re, d_im, _, _, _ = _card_inputs(n, b, 50 + n, cuda_device)
+    v = (b, -1, 2**k)
+
+    def run(rows):
+        tiles = fused_layer.grad_tiles(2 ** (n - k), k, cuda_device)
+        bp = torch.empty((len(range(b)[rows]), tiles), dtype=torch.float64, device=cuda_device)
+        gp = torch.empty_like(bp)
+        planes = fused_layer.fused_layer_grads(
+            *(t[rows].view(bp.shape[0], -1, 2**k) for t in (d_re, d_im, cutv)), -g[rows],
+            -beta[rows], k, re[rows].view(bp.shape[0], -1, 2**k),
+            im[rows].view(bp.shape[0], -1, 2**k), bp, gp)
+        return planes, betagrad.final_sum(gp), betagrad.final_sum(bp)
+
+    (g_re, g_im), d_gamma, d_beta = got = run(slice(None))
+    args = (d_re.view(v), d_im.view(v), cutv.view(v), -g, -beta, k)
+    _close_to_scale((g_re, g_im), fused_layer.fused_phase_mixer_group(*args, reverse=True))
+    w = fused_layer.fused_phase_mixer_group(*args[:3], torch.zeros_like(g), -beta, k,
+                                            reverse=True)
+    w = [t.reshape(b, -1) for t in w]
+    want_gamma, want_beta = ref.layer_grads_split(*w, re, im, cutv, g, k)
+    v_re, v_im = ref.apply_phase(re, im, cutv, g)
+    tol = betagrad.tolerance(*w, v_re, v_im, 0, k)
+    assert bool(((d_beta - want_beta).abs() <= tol).all()), (d_beta, want_beta, tol)
+    g_re, g_im = g_re.reshape(b, -1), g_im.reshape(b, -1)
+    scale = (cutv.abs() * ((im * g_re).abs() + (re * g_im).abs())).sum(-1)
+    assert bool(((d_gamma - want_gamma).abs() <= 1e-5 * scale).all())
+    again = run(slice(None))
+    assert all(torch.equal(x, y) for x, y in zip((*got[0], *got[1:]), (*again[0], *again[1:])))
+    for rows in (slice(0, 1), slice(1, 3)):
+        (p_re, p_im), p_gamma, p_beta = run(rows)
+        assert torch.equal(p_gamma, d_gamma[rows]) and torch.equal(p_beta, d_beta[rows])
+        assert torch.equal(p_re.reshape(-1), got[0][0][rows].reshape(-1))
+        assert torch.equal(p_im.reshape(-1), got[0][1][rows].reshape(-1))
+
+
 def test_layer_at_26_qubits_launches_three_passes_each_way(cuda_device):
     """One fused and two strided launches forward, the same again in the
-    adjoint, beside the backward's ∂β and ∂γ."""
+    adjoint, whose fused launch writes ∂γ and the ∂β of qubits 0–11; ∂β of
+    qubits 12–25 in one read of its own, and no ∂γ kernel."""
     n = 26
     re, im, cutv, g, b = _card_inputs(n, 1, 9, cuda_device)
     args = [t.clone().requires_grad_(True) for t in (re, im, g, b)]
@@ -290,7 +340,7 @@ def test_layer_at_26_qubits_launches_three_passes_each_way(cuda_device):
     none = dict.fromkeys(ops.KERNELS, 0)
     assert forward == {**none, "fused_phase_mixer_group": 1, "mixer_group_strided": 2}
     assert both == {**none, "fused_phase_mixer_group": 2, "mixer_group_strided": 4,
-                    "beta_grad": 1, "phase_grad": 1}
+                    "beta_grad": 1, "fused_layer_grads": 1}
 
 
 @pytest.mark.parametrize("schedule", ["faithful", "alternating"])
@@ -554,7 +604,10 @@ def test_graph_replay_counts_the_eager_launches(cuda_device):
         run()
         counts.append((ops.launch_counts(), dict(get_ledger().op_traces)))
     assert counts[0] == counts[1]
-    assert counts[0][0]["beta_grad"] == qcfg.opt_steps * qcfg.p_layers
+    # at n = 8 the fused pass holds every qubit: its reversed launch writes
+    # ∂γ and ∂β, and no other gradient kernel runs
+    assert counts[0][0]["fused_layer_grads"] == qcfg.opt_steps * qcfg.p_layers
+    assert counts[0][0]["beta_grad"] == counts[0][0]["phase_grad"] == 0
 
 
 def test_a_built_service_has_every_grid_bucket_and_its_drain_captures_none(cuda_device):
@@ -576,8 +629,9 @@ def test_a_built_service_has_every_grid_bucket_and_its_drain_captures_none(cuda_
 
 
 def test_layer_backward_launches_the_beta_grad_kernel(cuda_device):
-    """The layer's and a mixer group's backward each launch ∂β once, and
-    their ∂β matches the plain version's."""
+    """The layer's and a mixer group's backward each launch ∂β once (the
+    layer's over its strided qubits 7–13, the fused pass's 0–6 in its
+    reversed launch), and their ∂β matches the plain version's."""
     n = 14
     re, im, cutv, g, b = _inputs(n, 2, 11, cuda_device)
     b = b.clone().requires_grad_(True)
@@ -587,6 +641,7 @@ def test_layer_backward_launches_the_beta_grad_kernel(cuda_device):
     out = ops.apply_mixer_bits(re, im, n, 3, 6, b)
     (d_bits,) = torch.autograd.grad(out[0].sum() - out[1].sum(), b)
     assert ops.launch_counts()["beta_grad"] == 2
+    assert ops.launch_counts()["fused_layer_grads"] == 1
     bp = b.detach().requires_grad_(True)
     out = ref.apply_mixer(*ref.apply_phase(re, im, cutv, g), n, bp, 7)
     (want,) = torch.autograd.grad(out[0].sum() + 2 * out[1].sum(), bp)

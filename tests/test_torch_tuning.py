@@ -143,7 +143,7 @@ def _planes(b, *shape):
 
 
 def _launch_all(n=12, k=7, b=2):
-    """One launch of each of the ten wrappers at small shapes; returns
+    """One launch of each of the eleven wrappers at small shapes; returns
     {op key: per-row dim} as each wrapper keys its lookup."""
     dim, dk = 2**n, 2**k
     re, im, cutv = _planes(b, dim)
@@ -154,6 +154,10 @@ def _launch_all(n=12, k=7, b=2):
     v3 = (b, dim // dk, dk)
     fused_layer.fused_phase_mixer_group(re.view(v3), im.view(v3), cutv.view(v3),
                                         ang, ang, k)
+    tiles = fused_layer.grad_tiles(dim // dk, k, CPU)
+    part = torch.zeros((b, tiles), dtype=torch.float64)
+    fused_layer.fused_layer_grads(re.view(v3), im.view(v3), cutv.view(v3), ang, ang, k,
+                                  re.view(v3), im.view(v3), part, part)
     mixer.mixer_group_trailing(re.view(v3), im.view(v3), ang, k)
     v4 = (b, 2 ** (n - 3 - 3), 2**3, 2**3)  # lo_bit 3, k 3: Y = 8
     mixer.mixer_group_strided(re.view(v4), im.view(v4), ang, 3)
@@ -202,10 +206,13 @@ def test_wrappers_launch_builtin_geometry_with_tuning_off(recorder):
         "cutvals_at": {"tile_b": 1024},
         "cut_batch_dense": {"batch_tile": 128, "k_chunk": 64},
     }
+    # the gradient pass takes the fused pass's row_tile
+    assert recorder["fused_layer_grads"][-1][15] == 32
     assert ops.launch_counts() == {
-        "cutvals": 1, "cutvals_at": 1, "fused_phase_mixer_group": 1,
+        "cutvals": 1, "cutvals_at": 1, "fused_phase_mixer_group": 2,
         "mixer_group_strided": 1, "mixer_group_trailing": 1, "expectation": 1,
-        "apply_phase": 1, "cut_batch_dense": 1, "beta_grad": 1, "phase_grad": 1}
+        "apply_phase": 1, "cut_batch_dense": 1, "beta_grad": 1, "phase_grad": 1,
+        "fused_layer_grads": 1}
 
 
 @pytest.mark.parametrize("n,lo,nbits,want", [
@@ -234,6 +241,42 @@ def test_beta_grad_launches_one_pass_per_group(recorder, n, lo, nbits, want):
         tuple(w[1 + 5 * i:4 + 5 * i]) for w in launches for i in range(w[0])]
 
 
+@pytest.mark.parametrize("n,tiles,reads", [
+    # (n, the fused pass's tiles a row, ∂β's reads of the strided qubits:
+    # (b, n, parts, npass, then (g0, k, lanes, slabs, part0) of each))
+    (8, 1, []),
+    (14, 4, [(2, 14, 8, 1, 7, 7, 32, 1, 4, 0, 0, 0, 0, 0)]),
+    (16, 16, [(2, 16, 32, 1, 9, 7, 32, 1, 16, 0, 0, 0, 0, 0)]),
+    (21, 512, [(2, 21, 1536, 2, 7, 7, 32, 1, 512, 14, 7, 32, 1, 1024)]),
+])
+def test_layer_backward_on_the_card_path(recorder, n, tiles, reads):
+    """The layer backward on the card: ∂β of the strided qubits in their
+    reads, the fused pass's partials at the head of the row; the strided
+    adjoint passes; one reversed fused pass with the gradients over the
+    whole partial row; then the row sums of ∂γ and of ∂β. No ∂γ kernel,
+    and no ∂β read of the fused pass's qubits."""
+    b = 2
+    re, im, cutv = (torch.zeros((b, 2**n)) for _ in range(3))
+    args = [t.clone().requires_grad_(True) for t in (re, im, torch.zeros(b), torch.zeros(b))]
+    out = ops.apply_layer(args[0], args[1], cutv, args[2], args[3], n, 7)
+    ops.reset_launch_counts()
+    recorder.clear()
+    torch.autograd.grad(out, args, (re, im))
+    k, groups = ops.layer_passes(n, 7)
+    parts = tiles + sum(ref.beta_pass_tiles(n, p)[1] for p in ref.beta_grad_groups(k, n - k))
+    assert [c[5:19] for c in recorder.get("beta_grad_pass", [])] == reads
+    assert [c[8] for c in recorder.get("mixer", [])] == [2**g0 for g0, _ in reversed(groups)]
+    (grads,) = recorder["fused_layer_grads"]
+    assert grads[11:15] == (parts, b, 2 ** (n - k), k)
+    assert grads[15] * tiles == 2 ** (n - k)
+    assert [c[2:4] for c in recorder["beta_grad_final"]] == [(b, tiles), (b, parts)]
+    counts = ops.launch_counts()
+    assert counts["fused_phase_mixer_group"] == counts["fused_layer_grads"] == 1
+    assert counts["beta_grad"] == (1 if reads else 0)
+    assert counts["phase_grad"] == 0
+    assert counts["mixer_group_strided"] == len(groups)
+
+
 @pytest.mark.parametrize("n", [16, 24, 26])
 def test_expectation_parts_with_tuning_off_are_todays(recorder, n):
     """max(1, min(1024, 2^n // 16384)) partials a row, as before the knob."""
@@ -259,6 +302,7 @@ def test_wrappers_launch_the_override_with_tuning_on(recorder):
     with tuning.using_overrides(table):
         _launch_all(n=n, k=k)
     got = _geometry(recorder)
+    assert recorder["fused_layer_grads"][-1][15] == 4
     assert got.pop("expectation") == {"parts": 2**n // 512}
     want.pop("expectation")
     assert got == want
