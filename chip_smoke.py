@@ -606,15 +606,17 @@ def fused_grads_phase(torch, dev, mem_bw) -> list:
 def predicted_sharded_launches(ops, dist_mod, axis, sizes, p, opt_steps, dev):
     """Launches of one sharded solve, per kernel, from the code's own
     rules: per launch of `sharded_qaoa_batch` (a group of same-n subgraphs
-    is split so its peak fits the card), 2 ``cutvals_at`` (layouts A and
-    B, alternating schedule), 1 expectation, and per layer 1 fused +
-    one strided per group of `ops.layer_passes` over the n - h local
-    qubits, and the global-qubit mix: strided, or trailing where
+    is split by the one memory rule, `qaoa.rows_on_card`), 2 ``cutvals_at``
+    (layouts A and B, alternating schedule), 1 expectation, and per layer
+    1 fused + one strided per group of `ops.layer_passes` over the n - h
+    local qubits, and the global-qubit mix: strided, or trailing where
     chunk == 1."""
+    from repro_torch.core import qaoa as qaoa_mod
+
     want = {k: 0 for k in ops.KERNELS}
     for n in sorted(set(sizes)):
-        per = dist_mod.subgraphs_per_launch(n, p, opt_steps, axis, dev)
-        launches = len(dist_mod.launch_slices(sizes.count(n), per))
+        per = qaoa_mod.rows_on_card(dist_mod.sharded_row_bytes(n, p, opt_steps, axis), dev)
+        launches = len(qaoa_mod.round_slices(sizes.count(n), per))
         n_local = n - axis.h
         mix = "mixer_group_strided" if n_local > axis.h else "mixer_group_trailing"
         want["cutvals_at"] += 2 * launches
@@ -1480,9 +1482,7 @@ def timed_solve(torch, fn):
 
 
 def stage_line(out) -> str:
-    """A solve's timings: the seconds, and the counts of its QAOA rounds."""
-    return " ".join(f"{k}={v:.3f}s" if k.endswith("_s") else f"{k}={v}"
-                    for k, v in out.timings.items())
+    return " ".join(f"{k}={v:.3f}s" for k, v in out.timings.items())
 
 
 def data_axis_phase(torch, dev, graph400, phase7) -> None:

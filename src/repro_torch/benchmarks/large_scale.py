@@ -80,7 +80,7 @@ def run_distributed(sizes=(1000, 2000), p: float = 0.02, seed: int = 0,
                 "mode": label,
                 "n": n,
                 "cut": out.cut_value,
-                **{k: v for k, v in out.timings.items() if k.endswith("_s")},
+                **out.timings,
             }
             if label == "pool":
                 row["mesh"] = out.report.extra["mesh"]

@@ -6,8 +6,9 @@ wires them together:
 1. `solve_pool`: the solver pool, the paper's "N_s QAOA solvers × T
    rounds", with the subgraph batch split over the `data` (and `pod`)
    axes. In one process every shard's rows run as one batch, one launch
-   per op; over ranks each rank solves its contiguous block of rows and
-   the results are gathered.
+   per op a round; over ranks each rank solves its contiguous block of
+   rows and the results are gathered. The rounds are those of
+   `qaoa.solve_subgraph_batch`: as many rows as the card holds.
 2. `sharded_qaoa`: one n-qubit QAOA circuit with its 2^n amplitudes
    sharded over the D shards of the `model` axis: only the h = log2(D)
    "global" qubits need mixing across shards, and one qubit swap a layer
@@ -49,10 +50,10 @@ MERGE_MODES = ("auto", "striped", "single")
 # and three live state pairs without autograd; with it, each layer saves
 # its output and its mixer's (16 B) on top of the backward's temporaries.
 # Measured on an H100 at n = 26, D = 4 (chip_smoke.py phases 7 and 10):
-# 44 B without autograd, 155 B with it at p = 3
+# 44 B without autograd, 155 B with it at p = 3; at launches of 23 and 7
+# such subgraphs, 40 B and 89 B
 FWD_BYTES_PER_AMP = 48
 GRAD_BYTES_PER_LAYER, GRAD_BYTES_BASE = 16, 112
-MEMORY_SHARE = 0.6  # of the card's memory a launch may plan to fill
 
 
 class ShardedQAOAResult(NamedTuple):
@@ -63,23 +64,14 @@ class ShardedQAOAResult(NamedTuple):
     betas: torch.Tensor  # (B, p)
 
 
-def subgraphs_per_launch(n: int, p: int, opt_steps: int, axis, device) -> int:
-    """How many n-qubit subgraphs one launch of the sharded engine takes so
-    that its peak stays within `MEMORY_SHARE` of the card; no cap on the
-    CPU. Deterministic for a card, so a caller can predict the launches."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return 1 << 30
+def sharded_row_bytes(n: int, p: int, opt_steps: int, axis) -> int:
+    """Peak device bytes one n-qubit subgraph of p layers holds in a launch
+    of the sharded engine in this process (its ``axis.local`` shards), with
+    the Adam ascent where ``opt_steps`` > 0; the launch size is
+    `qaoa.rows_on_card` of it."""
     per_amp = (GRAD_BYTES_BASE + GRAD_BYTES_PER_LAYER * p if opt_steps
                else FWD_BYTES_PER_AMP)
-    amps = axis.local * 2 ** (n - axis.h)  # this process's share of one subgraph
-    budget = MEMORY_SHARE * torch.cuda.get_device_properties(device).total_memory
-    return max(1, int(budget // (per_amp * amps)))
-
-
-# ``b`` subgraphs in the fewest launches of at most ``per_launch``, as even
-# as they go: the split of the single-device solve's rounds
-launch_slices = qaoa_mod.round_slices
+    return per_amp * axis.local * 2 ** (n - axis.h)
 
 
 def sharded_qaoa_batch(edges, weights, n: int, gammas, betas, axis,
@@ -93,7 +85,7 @@ def sharded_qaoa_batch(edges, weights, n: int, gammas, betas, axis,
     rows; ``gammas``/``betas`` (p,) shared by the batch or (B, p); the
     run (or, with ``opt_steps`` > 0, the initial) angles. ``linears``
     (B, n) optional per-vertex terms. The subgraphs run as rows, as many
-    per launch as `subgraphs_per_launch` allows.
+    per launch as `qaoa.rows_on_card` plans for `sharded_row_bytes`.
     """
     b = edges.shape[0]
     if gammas.dim() == 1:
@@ -102,12 +94,12 @@ def sharded_qaoa_batch(edges, weights, n: int, gammas, betas, axis,
     if top_k > layout.local_dim:
         raise ValueError(f"top_k={top_k} exceeds the {layout.local_dim} amplitudes "
                          "of a shard")
-    per_launch = subgraphs_per_launch(n, gammas.shape[1], opt_steps, axis,
-                                      edges.device)
+    per_launch = qaoa_mod.rows_on_card(
+        sharded_row_bytes(n, gammas.shape[1], opt_steps, axis), edges.device)
     outs = []
     tr = trace_mod.get_tracer()
     dev = edges.device
-    for sl in launch_slices(b, per_launch):
+    for sl in qaoa_mod.round_slices(b, per_launch):
         lin = None if linears is None else linears[sl]
         with tr.device_span("cost_table", dev):
             cut = engine.cut_table(layout, edges[sl], weights[sl], lin)
@@ -154,9 +146,10 @@ def solve_pool(edges, weights, masks, cfg: qaoa_mod.QAOAConfig, mesh,
     Pads the batch to a multiple of their product with empty rows (mask 1,
     no edges, zero linear terms). Shard d takes the d-th contiguous block
     of rows, as ``shard_map``'s ``P(axes)`` lays them out. In one process
-    every shard's rows run as one batch; over ranks each rank solves its
-    block and every field is gathered. The padding is stripped after the
-    gather. ``mesh`` is a `Mesh` or what `as_mesh` takes; ``linears``
+    every shard's rows run as one batch, in the rounds of
+    `qaoa.solve_subgraph_batch`; over ranks each rank solves its block, in
+    the rounds its card holds, and every field is gathered. The padding is
+    stripped after the gather. ``mesh`` is a `Mesh` or what `as_mesh` takes; ``linears``
     (B, n_qubits) optional per-vertex terms. Returns the `QAOAResult` of
     `qaoa.solve_subgraph_batch` on the same rows, the same on every rank.
     """
@@ -220,8 +213,8 @@ def solve_distributed(graph, cfg: para_mod.ParaQAOAConfig, mesh_spec,
     1. partition on the host at the lifted budget ``cfg.n_qubits + h``,
        h = log2 of the `model` axis (0 without one);
     2. subgraphs of ``cfg.n_qubits`` qubits or fewer solve through
-       `solve_pool` over the `data` (and `pod`) axes, or as the one batch
-       of `solve` without them; the larger ones, grouped by qubit count,
+       `solve_pool` over the `data` (and `pod`) axes, or in the rounds of
+       `solve` without them; the larger ones, grouped by qubit count,
        run through `sharded_qaoa_batch` over `model` at the linear-ramp
        angles, or after ``cfg.sharded_opt_steps`` Adam steps through the
        sharded evolution; in one process they run once, not once a data

@@ -7,9 +7,9 @@ Parameter taxonomy (paper §4.2):
   tunable:            top_k (K), merge_level (L) / beam_width
 
 On one card the N_s solvers of a round are the rows of one batch, and N_s
-is what the card's memory holds (`qaoa.max_rows_per_round`): the M
-subgraphs run in T = ⌈M / N_s⌉ rounds of ⌈M / T⌉ rows, one round where the
-card holds them all (and always off the card).
+is what the card's memory holds (`qaoa.solve_subgraph_batch` plans it): the
+M subgraphs run in T = ⌈M / N_s⌉ rounds of ⌈M / T⌉ rows, one round where
+the card holds them all (and always off the card).
 """
 
 from __future__ import annotations
@@ -167,11 +167,10 @@ def solve(graph: Graph | Problem, cfg: ParaQAOAConfig = ParaQAOAConfig(),
     value is the full objective including the offset.
 
     The subgraphs' QAOA runs in the rounds the card holds
-    (`qaoa.max_rows_per_round`); the timings hold, beside the stages'
-    seconds, ``rounds`` and ``rows_per_round`` (the first round's rows).
-    Under a recording tracer the timings also hold `traced_timings`, with
-    the device intervals anchored before the partition and resolved after
-    the solve's last read.
+    (`qaoa.solve_subgraph_batch`), each round the span ``qaoa_round``; the
+    timings hold the stages' seconds. Under a recording tracer they also
+    hold `traced_timings`, with the device intervals anchored before the
+    partition and resolved after the solve's last read.
     """
     dev = resolve_device(device)
     prob = as_problem(graph)
@@ -189,15 +188,13 @@ def solve(graph: Graph | Problem, cfg: ParaQAOAConfig = ParaQAOAConfig(),
 
         # ---- stage 2: every subgraph's QAOA, in rounds the card holds -----
         with tr.span("solve_pool", m=part.m, n_qubits=cfg.n_qubits) as sp_solve:
-            per_round = qaoa_mod.max_rows_per_round(cfg.n_qubits, cfg.p_layers, dev)
-            qcfg = dataclasses.replace(cfg.qaoa_config(), rows_per_round=per_round)
-            rounds = qaoa_mod.round_slices(part.m, per_round)
             edges, weights, masks = qaoa_mod.pad_subgraph_arrays(
-                part.subgraphs, qcfg.n_qubits, device=dev)
-            linears = (qaoa_mod.pad_linear_arrays(sub_lins, qcfg.n_qubits,
+                part.subgraphs, cfg.n_qubits, device=dev)
+            linears = (qaoa_mod.pad_linear_arrays(sub_lins, cfg.n_qubits,
                                                   device=dev)
                        if has_lin else None)
-            result = qaoa_mod.solve_subgraph_batch(edges, weights, masks, qcfg,
+            result = qaoa_mod.solve_subgraph_batch(edges, weights, masks,
+                                                   cfg.qaoa_config(),
                                                    linear=linears)
             bit_indices = result.bitstrings.cpu().numpy()  # (M, K); syncs
 
@@ -221,8 +218,6 @@ def solve(graph: Graph | Problem, cfg: ParaQAOAConfig = ParaQAOAConfig(),
         "merge_s": sp_merge.duration_s,
         "refine_s": sp_refine.duration_s,
         "total_s": root.duration_s,
-        "rounds": len(rounds),
-        "rows_per_round": rounds[0].stop,
     }
     if tr.record:
         timings.update(traced_timings(tr.spans[first:]))

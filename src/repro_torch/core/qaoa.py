@@ -8,7 +8,8 @@ is written out: every function takes (B, …) tensors, every subgraph has
 its own angles, Adam moments and cotangents, and one kernel launch per op
 covers the whole batch. A batch larger than the card holds runs in rounds
 (`solve_subgraph_batch`), sized by `max_rows_per_round` from the card's
-memory.
+memory. `rows_on_card` is the one memory rule of both statevector engines:
+each states its bytes a row, this one's is `row_bytes`.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from repro_torch.obs import trace as trace_mod
 # top-K) per amplitude, ROW_BYTES_BASE + ROW_BYTES_PER_LAYER · p: measured
 # on an H100 at n = 24 and 26, p = 1, 2 and 3 (44, 52, 60; PERF.md §4)
 ROW_BYTES_BASE, ROW_BYTES_PER_LAYER = 36, 8
-MEMORY_SHARE = 0.9  # of the card's unallocated memory a round may plan to fill
+MEMORY_SHARE = 0.9  # of the card's unallocated memory a launch may plan to fill
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,9 +40,6 @@ class QAOAConfig:
     ramp_delta: float = 0.75  # linear-ramp initialization scale
     top_k: int = 4  # paper's K (Selective Distribution Exploration)
     mixer_group: int = 7  # qubits per mixer group (2^7 = 128 amplitudes)
-    # the most rows a round of `solve_subgraph_batch` takes (None: all rows
-    # in one round); on the card, what its memory holds (`max_rows_per_round`)
-    rows_per_round: int | None = None
 
 
 class QAOAResult(NamedTuple):
@@ -137,19 +135,21 @@ def solve_subgraph_batch(edges, weights, real_mask, cfg: QAOAConfig,
 
     edges (B, E, 2) int32, weights (B, E) f32 and ``linear`` (B, n_qubits)
     f32 or None on one device; real_mask (B,) on the host. The rows run in
-    the rounds of `round_slices` (one when ``cfg.rows_per_round`` is None),
-    each the device span ``qaoa_round``: one call of `solve_batch_on_device`,
-    with one kernel launch per op covering the round's rows, then the
-    round's top-K; its states are dropped before the next round starts.
-    Rows do not depend on their batch, so the joined result equals the
-    result of one round, bit for bit. On the card nothing here reads the card back, so
-    the call returns once its launches are queued (or, behind a stall
-    longer than the card's launch queue, once the queue has room); reading
-    the result waits for them.
+    the rounds of `round_slices`, as many rows a round as
+    `max_rows_per_round` plans on the inputs' device (one round off the
+    card), each the device span ``qaoa_round``: one call of
+    `solve_batch_on_device`, with one kernel launch per op covering the
+    round's rows, then the round's top-K; its states are dropped before
+    the next round starts. Rows do not depend on their batch, so the
+    joined result equals the result of one round, bit for bit. On the card
+    nothing here reads the card back, so the call returns once its
+    launches are queued (or, behind a stall longer than the card's launch
+    queue, once the queue has room); reading the result waits for them.
     """
     tr = trace_mod.get_tracer()
     parts = []
-    for r, rows in enumerate(round_slices(edges.shape[0], cfg.rows_per_round)):
+    per_round = max_rows_per_round(cfg.n_qubits, cfg.p_layers, edges.device)
+    for r, rows in enumerate(round_slices(edges.shape[0], per_round)):
         with tr.device_span("qaoa_round", edges.device, round=r,
                             rows=rows.stop - rows.start):
             gammas, betas, re, im, exp = solve_batch_on_device(
@@ -165,11 +165,11 @@ def solve_subgraph_batch(edges, weights, real_mask, cfg: QAOAConfig,
     return QAOAResult(*(torch.cat(field) for field in zip(*parts)))
 
 
-def round_slices(b: int, rows_per_round: int | None) -> list[slice]:
-    """``b`` rows in the fewest rounds of at most ``rows_per_round`` (all in
-    one when None), as even as they go: T = ⌈b / rows_per_round⌉ rounds of
-    ⌈b / T⌉ rows, the last with the rest."""
-    rounds = 1 if rows_per_round is None else -(-b // rows_per_round)
+def round_slices(b: int, per_round: int | None) -> list[slice]:
+    """``b`` rows in the fewest rounds of at most ``per_round`` (all in one
+    when None), as even as they go: T = ⌈b / per_round⌉ rounds of ⌈b / T⌉
+    rows, the last with the rest."""
+    rounds = 1 if per_round is None else -(-b // per_round)
     size = -(-b // rounds)
     return [slice(s, min(s + size, b)) for s in range(0, b, size)]
 
@@ -179,28 +179,35 @@ def row_bytes(n: int, p: int) -> int:
     return (ROW_BYTES_BASE + ROW_BYTES_PER_LAYER * p) << n
 
 
-def rows_that_fit(n: int, p: int, free_bytes: int) -> int:
-    """The most rows of n qubits and p layers a round may take within
+def rows_that_fit(bytes_a_row: int, free_bytes: int) -> int:
+    """The most rows of ``bytes_a_row`` each a launch may take within
     `MEMORY_SHARE` of ``free_bytes``; raises where not one row fits."""
-    rows = int(MEMORY_SHARE * free_bytes) // row_bytes(n, p)
+    rows = int(MEMORY_SHARE * free_bytes) // bytes_a_row
     if rows < 1:
         raise MemoryError(
-            f"one row of {n} qubits at p = {p} needs {row_bytes(n, p):,} B, more "
-            f"than {MEMORY_SHARE:.0%} of the {free_bytes:,} B the card has free")
+            f"one row needs {bytes_a_row:,} B, more than {MEMORY_SHARE:.0%} of "
+            f"the {free_bytes:,} B the card has free")
     return rows
 
 
-def max_rows_per_round(n: int, p: int, device) -> int | None:
-    """The rows a round of `solve_subgraph_batch` may take on ``device``:
+def rows_on_card(bytes_a_row: int, device: torch.device | str) -> int | None:
+    """The rows of ``bytes_a_row`` each one launch may take on ``device``:
     `rows_that_fit` the card's total memory less what is allocated (what
     the caching allocator keeps reserved counts as free, where
     `torch.cuda.mem_get_info` would count it as used). None, no limit, off
-    the card."""
+    the card. The one place that reads the card's memory to size a launch,
+    for the flat engine's rounds and the sharded engine's launches."""
     device = torch.device(device)
     if device.type != "cuda":
         return None
     total = torch.cuda.get_device_properties(device).total_memory
-    return rows_that_fit(n, p, total - torch.cuda.memory_allocated(device))
+    return rows_that_fit(bytes_a_row, total - torch.cuda.memory_allocated(device))
+
+
+def max_rows_per_round(n: int, p: int, device: torch.device | str) -> int | None:
+    """The rows a round of `solve_subgraph_batch` may take on ``device``:
+    `rows_on_card` at `row_bytes` (n, p)."""
+    return rows_on_card(row_bytes(n, p), device)
 
 
 def solve_subgraph(edges, weights, real_mask, cfg: QAOAConfig,

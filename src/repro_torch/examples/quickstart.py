@@ -32,7 +32,7 @@ def main(argv=None):
     print(f"ParaQAOA cut = {out.cut_value:.0f}  "
           f"(M={out.partition.m} subgraphs, {out.report.runtime_s:.2f}s)")
     for stage, t in out.timings.items():
-        print(f"  {stage:12s} {t:.3f}s" if stage.endswith("_s") else f"  {stage:12s} {t}")
+        print(f"  {stage:12s} {t:.3f}s")
 
     _, gw_cut, gw_rep = goemans_williamson(graph, steps=250, rounds=64,
                                            device=args.device)

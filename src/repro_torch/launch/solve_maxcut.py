@@ -171,7 +171,7 @@ def run(argv=None):
           f"(M={out.partition.m}, K={args.k}, {out.report.runtime_s:.2f}s, "
           f"{args.device})")
     for stage, t in out.timings.items():
-        print(f"  {stage:12s} {t:.2f}s" if stage.endswith("_s") else f"  {stage:12s} {t}")
+        print(f"  {stage:12s} {t:.2f}s")
 
     if args.problem == "mis":
         viol = independent_set_violations(graph, out.assignment)

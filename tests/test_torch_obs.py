@@ -124,8 +124,7 @@ SOLVE_TREE = [  # (name, parent, attrs) in start order: 5 subgraphs, 3 steps
     ("refine", "solve", {"steps": 5}),
     ("report", "solve", {}),
 ]
-STAGE_KEYS = ["merge_s", "partition_s", "refine_s", "rounds", "rows_per_round", "solve_s",
-              "total_s"]
+STAGE_KEYS = ["merge_s", "partition_s", "refine_s", "solve_s", "total_s"]
 PART_KEYS = ["adam_step_s", "merge_plan_s", "merge_scan_s", "qaoa_round_s", "qaoa_tail_s",
              "round_gap_s"]
 
@@ -148,7 +147,7 @@ def test_solve_span_tree_of_the_port():
     assert (out.timings["merge_plan_s"], out.timings["merge_scan_s"]) == (
         dur["merge_plan"], dur["merge_scan"])
     assert (out.timings["qaoa_round_s"], out.timings["round_gap_s"]) == (dur["qaoa_round"], 0)
-    assert (out.timings["rounds"], out.timings["rows_per_round"]) == (1, 5)
+    assert [s.attrs for s in tr.spans if s.name == "qaoa_round"] == [{"round": 0, "rows": 5}]
     assert out.timings["total_s"] == dur["solve"]
     assert sorted(out.timings) == sorted(STAGE_KEYS + PART_KEYS)
     _both_validate(tr.to_jsonl())
@@ -160,10 +159,9 @@ def test_solve_span_tree_of_the_port():
 def test_qaoa_round_spans_of_a_solve_in_rounds(monkeypatch):
     """Rounds of 3 rows on 5 subgraphs: two ``qaoa_round`` spans under
     ``solve_pool``, each with its round and rows and the round's cost table,
-    steps, final state and top-K under it; ``rounds`` and ``rows_per_round``
-    in the timings and the report; the traced round timings from the spans
-    (on a counter clock, a tick between one round's end and the next one's
-    start)."""
+    steps, final state and top-K under it; the traced round timings from
+    the spans (on a counter clock, a tick between one round's end and the
+    next one's start)."""
     from repro_torch.core import qaoa as tqaoa
 
     monkeypatch.setattr(tqaoa, "max_rows_per_round", lambda n, p, device: 3)
@@ -182,8 +180,6 @@ def test_qaoa_round_spans_of_a_solve_in_rounds(monkeypatch):
     assert not any(by_id[s.parent_id].name == "solve_pool" for s in tr.spans
                    if s.name in ("cost_table", "adam_step", "final_state", "top_k"))
     t = out.timings
-    assert (t["rounds"], t["rows_per_round"]) == (2, 3)
-    assert (out.report.extra["rounds"], out.report.extra["rows_per_round"]) == (2, 3)
     assert t["qaoa_round_s"] == sum(s.duration_s for s in rounds) / 2
     assert t["round_gap_s"] == rounds[1].t0 - rounds[0].t1 == 1
     assert t["qaoa_tail_s"] == sum(s.duration_s for s in tr.spans

@@ -253,22 +253,25 @@ def test_batch_in_several_launches_equals_one_launch_with_linear_terms(monkeypat
             torch.from_numpy(gammas), torch.from_numpy(betas), LocalAxis(d))
     kw = dict(top_k=3, opt_steps=2, linears=torch.from_numpy(lin))
     one = tdist.sharded_qaoa_batch(*args, **kw)
-    monkeypatch.setattr(tdist, "subgraphs_per_launch", lambda *a: 2)
+    monkeypatch.setattr(tqaoa, "rows_on_card", lambda *a: 2)
     split = tdist.sharded_qaoa_batch(*args, **kw)
     for a, b in zip(one, split):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_launch_planner_fits_the_card(monkeypatch):
-    assert tdist.launch_slices(15, 12) == [slice(0, 8), slice(8, 15)]
-    assert tdist.launch_slices(3, 5) == [slice(0, 3)]
-    assert tdist.subgraphs_per_launch(26, 3, 0, LocalAxis(4), "cpu") >= 1 << 20
-    # an 80 GB card: 15 subgraphs of 26 qubits in one launch without
-    # autograd (48 B/amplitude), 4 with it (160 B at p = 3)
+    assert tqaoa.round_slices(15, 12) == [slice(0, 8), slice(8, 15)]
+    assert tqaoa.round_slices(3, 5) == [slice(0, 3)]
+    fwd, adam = (tdist.sharded_row_bytes(26, 3, steps, LocalAxis(4)) for steps in (0, 30))
+    assert (fwd, adam) == (48 << 26, 160 << 26)  # B an amplitude × the 2^26 of a row
+    assert tqaoa.rows_on_card(fwd, "cpu") is None
+    # an 80 GB card with nothing allocated, planned by the flat engine's
+    # rule: 23 subgraphs of 26 qubits in one launch without autograd, 7 with it
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda d: type("P", (), {"total_memory": 85_000_000_000}))
-    assert tdist.subgraphs_per_launch(26, 3, 0, LocalAxis(4), "cuda") == 15
-    assert tdist.subgraphs_per_launch(26, 3, 30, LocalAxis(4), "cuda") == 4
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d=None: 0)
+    assert tqaoa.rows_on_card(fwd, "cuda") == 23
+    assert tqaoa.rows_on_card(adam, "cuda") == 7
 
 
 def test_stable_topk_in_row_chunks_equals_one_sort(monkeypatch):
