@@ -603,6 +603,76 @@ def fused_grads_phase(torch, dev, mem_bw) -> list:
     return lines
 
 
+# the strided groups of the N = 26 layer on the benchmark's 16 rows
+# (`ops.layer_passes(26, 7)`: bits 12 and 19, k = 7), phase 2
+STRIDED_N26 = (16, 26)
+
+
+def strided_n26_phase(torch, dev, mem_bw) -> list:
+    """Phase 2's strided groups of the N = 26 layer on STRIDED_N26's rows:
+    each timed forward (β) and adjoint (−β) beside its bound (16 B an
+    amplitude) and beside a ``copy_`` of both planes, the card's practical
+    ceiling for 16 B an amplitude; rows [0, 2) against `ref.mixer_group`
+    within 1e-5 of their largest amplitude and bitwise equal alone and in
+    the batch; every launch on the staged path. Returns the lines."""
+    from repro_torch.kernels import mixer, ops, ref
+
+    b, n = STRIDED_N26
+    amps = b * 2**n
+    gen = torch.Generator(device=dev).manual_seed(n)
+    re, im = (2.0 ** (-n / 2) * torch.randn((b, 2**n), generator=gen, device=dev)
+              for _ in range(2))
+    beta = 2 * torch.rand(b, generator=gen, device=dev) - 1
+    neg = -beta
+    dst = (torch.empty_like(re), torch.empty_like(im))
+    copy_ms = time_ms(torch, lambda: (dst[0].copy_(re), dst[1].copy_(im)), 10)
+    del dst
+    bound = 16 * amps / mem_bw * 1e3
+    lines = []
+    ops.reset_launch_counts()
+    for lo, k in ops.layer_passes(n, GROUP)[1]:
+        shape = (b, 2 ** (n - lo - k), 2**k, 2**lo)
+        r4, i4 = re.view(shape), im.view(shape)
+        fwd = time_ms(torch, lambda: mixer.mixer_group_strided(r4, i4, beta, k), 10)
+        adj = time_ms(torch, lambda: mixer.mixer_group_strided(r4, i4, neg, k), 10)
+        full = mixer.mixer_group_strided(r4, i4, beta, k)
+        part = mixer.mixer_group_strided(r4[:2], i4[:2], beta[:2], k)
+        check(all(torch.equal(x, y[:2]) for x, y in zip(part, full)),
+              f"strided mixer bit {lo}: rows [0, 2) differ alone and in the batch")
+        del full
+        want = ref.mixer_group(r4[:2], i4[:2], beta[:2], k)
+        err = max(float((x - y).abs().max()) for x, y in zip(part, want))
+        tol = 1e-5 * max(float(y.abs().max()) for y in want)
+        check(err <= tol, f"strided mixer bit {lo} at {shape}: max_abs_err {err} > {tol}")
+        del part, want
+        staged, lanes = mixer.strided_geometry(shape[1], shape[3], k, dev)
+        lines.append(
+            f"[2 kernel mixer_group_strided n26] bit {lo} k={k} view {shape} "
+            f"({'staged' if staged else 'block body'}, {lanes} lanes) | forward {fwd:.3f} ms, "
+            f"adjoint {adj:.3f} ms | bound {bound:.3f} ms (16 B: {100 * bound / fwd:.1f}% / "
+            f"{100 * bound / adj:.1f}%) | copy_ of both planes {copy_ms:.3f} ms "
+            f"({100 * copy_ms / fwd:.1f}% / {100 * copy_ms / adj:.1f}% of it) | rows [0, 2) "
+            f"within {err:.3g} of ref.mixer_group (tol {tol:.3g}), bitwise alone")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts["mixer_strided_staged"] == counts["mixer_group_strided"],
+          f"strided launches at n 26: {counts['mixer_strided_staged']} staged of "
+          f"{counts['mixer_group_strided']}")
+    lines.append(f"[2 kernel mixer_group_strided n26] launches {counts['mixer_group_strided']}, "
+                 f"staged {counts['mixer_strided_staged']}")
+    del re, im
+    torch.cuda.empty_cache()
+    return lines
+
+
+def staged_groups(n: int, groups, dev) -> int:
+    """How many strided groups (lo_bit, nbits) on 2^n amplitudes take the
+    staged path (`mixer.strided_geometry`)."""
+    from repro_torch.kernels import mixer
+
+    return sum(mixer.strided_geometry(2 ** (n - lo - k), 2**lo, k, dev)[0] for lo, k in groups)
+
+
 def predicted_sharded_launches(ops, dist_mod, axis, sizes, p, opt_steps, dev):
     """Launches of one sharded solve, per kernel, from the code's own
     rules: per launch of `sharded_qaoa_batch` (a group of same-n subgraphs
@@ -622,8 +692,11 @@ def predicted_sharded_launches(ops, dist_mod, axis, sizes, p, opt_steps, dev):
         want["cutvals_at"] += 2 * launches
         want["expectation"] += launches
         want["fused_phase_mixer_group"] += p * launches
-        want["mixer_group_strided"] += p * len(ops.layer_passes(n_local, GROUP)[1]) * launches
+        local = ops.layer_passes(n_local, GROUP)[1]
+        want["mixer_group_strided"] += p * len(local) * launches
         want[mix] += p * launches
+        mixes = [*local, *([(n_local - axis.h, axis.h)] if n_local > axis.h else [])]
+        want["mixer_strided_staged"] += p * staged_groups(n_local, mixes, dev) * launches
     return want
 
 
@@ -637,7 +710,8 @@ def predicted_solve_launches(cfg) -> dict:
     from repro_torch.kernels import ops
 
     p, steps = cfg.p_layers, cfg.opt_steps
-    groups_above = len(ops.layer_passes(cfg.n_qubits, GROUP)[1])
+    above = ops.layer_passes(cfg.n_qubits, GROUP)[1]
+    groups_above = len(above)
     return {
         "cutvals": 1,
         "cutvals_at": 0,
@@ -650,6 +724,8 @@ def predicted_solve_launches(cfg) -> dict:
         "beta_grad": steps * p if groups_above else 0,  # one a layer backward
         "phase_grad": 0,
         "fused_layer_grads": steps * p,  # likewise
+        "mixer_strided_staged": (steps * 2 * p + p) * staged_groups(cfg.n_qubits, above,
+                                                                     "cuda"),
     }
 
 
@@ -1000,7 +1076,7 @@ DEFAULT_GEOMETRY = {
     "expectation|2^24": {"tile": 16384},
     "mixer_matmul|2^17": {"row_tile": 32},
     "fused_layer|2^24": {"row_tile": 4},
-    "mixer_strided|2^17": {"tile_y": 32},
+    "mixer_strided|2^17": {"tile_y": 64},
     "cutvals|2^24": {"tile_b": 1024},
     "cutvals_at|2^26": {"tile_b": 1024},
     "cut_batch_dense|2^9": {"batch_tile": 128, "k_chunk": 64},
@@ -3565,6 +3641,8 @@ def main() -> int:
                  f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})" if k == f_main else ""))
     torch.cuda.empty_cache()
     for line in fused_grads_phase(torch, dev, mem_bw):
+        print(line)
+    for line in strided_n26_phase(torch, dev, mem_bw):
         print(line)
 
     # the strided groups of the N_MAIN layer, then those of `ops.apply_mixer`

@@ -235,9 +235,9 @@ def _sweep_state_ops(sw: _Sweeper, shapes: Shapes):
             return tuple(out)
 
         y_min = 2 ** los[0]
-        t_cands = [TILE_AMPS >> kk] + [
+        t_cands = [mixer.STAGE_AMPS >> kk] + [
             t for t in reversed(_pow2_divisors(y_min, lo=max(1, 256 >> kk),
-                                               hi=TILE_AMPS >> kk))]
+                                               hi=mixer.STAGE_AMPS >> kk))]
         sw.sweep("mixer_strided", 2 ** (n - kk), groups,
                  _dedup([{"tile_y": min(t, y_min)} for t in t_cands]),
                  flops=6.0 * kk * amps * len(los),

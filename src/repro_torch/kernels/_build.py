@@ -70,7 +70,7 @@ SIGNATURES = {
     "mixer_trailing": ("fused_layer", "pq_mixer_trailing",
                        [P, P, P, P, P, I64, I64, I32, I64, P]),
     "mixer": ("mixer", "pq_mixer_strided",
-              [P, P, P, P, P, I64, I64, I32, I64, I64, P]),
+              [P, P, P, P, P, I64, I64, I32, I64, I64, I32, P]),
     "apply_phase": ("phase", "pq_apply_phase",
                     [P, P, P, P, P, P, I64, I64, I64, P]),
     "expectation": ("phase", "pq_expectation", [P, P, P, P, P, I64, I64, I64, P]),

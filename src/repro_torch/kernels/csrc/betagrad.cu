@@ -58,8 +58,6 @@
 //    sum_x sum_q (|d_ore oim'| + |d_oim ore'|) of the exact sum.
 #include "common.cuh"
 
-#include <cuda.h>  // CUtensorMap (encoded through the runtime's driver entry point)
-
 #include <cstring>
 
 namespace {
@@ -75,10 +73,13 @@ constexpr int kStages = 3;
 constexpr int kSmem = kStages * kPlanes * kTile * static_cast<int>(sizeof(float));
 constexpr int kSlots = 16;    // leaves of an amplitude's tree
 constexpr int kMaxK = 12;     // qubits a group
-constexpr int kMaxBox = 256;  // TMA box extent
-// a copy that never lands (a refused tensor map) traps after ~10 s of
-// cycles instead of hanging the card
-constexpr long long kWaitCycles = 20000000000LL;
+using pq::bulk_copy;
+using pq::kMaxBox;
+using pq::mbar_arrive;
+using pq::mbar_expect;
+using pq::mbar_init;
+using pq::mbar_wait;
+using pq::tma_3d;
 
 // One group: qubits [g0, g0 + k) on the (B, X, 2^k, Y) view.
 struct Pass {
@@ -107,56 +108,6 @@ struct Launch {
   uint32_t per0, per1;  // tiles of each group a region (fused; jobs < 2^31)
   int log2_y_tiles0;     // regions a (row, x of the second group): 2^this
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (!done) {
-    if (clock64() - start > kWaitCycles) __trap();
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_3d(float* dst, const CUtensorMap* map, int c0, int c1, int c2,
-                                       uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
-      : "memory");
-}
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -420,43 +371,11 @@ beta_grad_final_kernel(const double* __restrict__ partial, float* __restrict__ o
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // the (box_inner, Y / box_inner, rows) map of one plane: a box is the
 // (box_inner, L / box_inner, box_rows) block, so it lands as rows of L
 bool encode_plane(CUtensorMap* map, const void* base, int64_t rows, const Pass& p) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const int64_t lanes = int64_t(1) << p.log2_lanes;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(p.box_inner),
-                              static_cast<cuuint64_t>(p.y_dim / p.box_inner),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(p.box_inner * sizeof(float)),
-                                 static_cast<cuuint64_t>(p.y_dim * sizeof(float))};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(p.box_inner),
-                             static_cast<cuuint32_t>(lanes / p.box_inner),
-                             static_cast<cuuint32_t>(p.box_rows)};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return pq::encode_runs(map, base, p.y_dim, rows, int64_t(1) << p.log2_lanes, p.box_inner,
+                         p.box_rows);
 }
 
 int log2_exact(int64_t v) {

@@ -12,8 +12,10 @@ strided kernel replaced (permute the group to the trailing axis, run the
 trailing kernel, permute back), kept as the sweep's yardstick.
 
 Knobs (through `tuning.param`): ``tile_y``, lanes along Y per strided
-block (key ``mixer_strided``); ``row_tile`` for the trailing kernel (key
-``mixer_matmul``).
+tile (key ``mixer_strided``); ``row_tile`` for the trailing kernel (key
+``mixer_matmul``). `strided_geometry` picks the strided kernel's path from the
+tile: the staged path where it fills a stage of STAGE_AMPS amplitudes with
+runs of at least 4 lanes (16 bytes), else the block body.
 """
 
 from __future__ import annotations
@@ -24,15 +26,31 @@ from repro_torch.kernels import _build, ref, tuning
 from repro_torch.kernels.fused_layer import TILE_AMPS, row_tile
 from repro_torch.kernels.ref import popcount
 
+STAGE_AMPS = 8192  # amplitudes of a plane a staged tile holds (kStageAmps in csrc/mixer.cu)
+MIN_RUN = 4  # lanes of the shortest run a TMA copy takes: 16 bytes
+
 
 def tile_y(x: int, y: int, k: int, device) -> int:
-    """Lanes along Y per strided block: TILE_AMPS >> k clamped to Y with
-    tuning off; a tuned value must keep 2^k * tile_y within TILE_AMPS."""
-    want = tuning.param("mixer_strided", x * y, "tile_y", TILE_AMPS >> k, device)
-    if not tuning.is_pow2(want) or want << k > TILE_AMPS:
+    """Lanes along Y per strided tile: STAGE_AMPS >> k clamped to Y with
+    tuning off; a tuned value must keep 2^k * tile_y within STAGE_AMPS."""
+    want = tuning.param("mixer_strided", x * y, "tile_y", STAGE_AMPS >> k, device)
+    if not tuning.is_pow2(want) or want << k > STAGE_AMPS:
         raise ValueError(f"mixer_strided tile_y {want} outside the kernel's "
-                         f"range: a power of two with 2^{k} * tile_y <= {TILE_AMPS}")
+                         f"range: a power of two with 2^{k} * tile_y <= {STAGE_AMPS}")
     return tuning.clamp_tile(y, want)
+
+
+def strided_geometry(x: int, y: int, k: int, device) -> tuple[bool, int]:
+    """(staged, lanes) of a strided launch on the (B, X, 2^k, Y) view: the
+    staged path where a tile of 2^k rows of `tile_y` lanes (of S =
+    STAGE_AMPS / (2^k · lanes) consecutive x where lanes = Y) fills a stage
+    with runs of at least MIN_RUN lanes; else the block body, on tiles of
+    at most TILE_AMPS amplitudes."""
+    lanes = tile_y(x, y, k, device)
+    slabs = STAGE_AMPS // (lanes << k)
+    if lanes >= MIN_RUN and (slabs == 1 or (lanes == y and x % slabs == 0)):
+        return True, lanes
+    return False, min(lanes, TILE_AMPS >> k)
 
 
 def rx_group_mats(beta: torch.Tensor, k: int):
@@ -78,14 +96,19 @@ def mixer_group_strided(re3: torch.Tensor, im3: torch.Tensor,
         _build.require(t, name, torch.float32, (b, x, dk, y), dev)
     beta = beta.to(torch.float32).contiguous()
     _build.require(beta, "beta", torch.float32, (b,), dev)
-    ty = tile_y(x, y, k, dev)
+    staged, lanes = strided_geometry(x, y, k, dev)
     ore = torch.empty_like(re3)
     oim = torch.empty_like(im3)
+    if staged and any(t.data_ptr() % 16 for t in (re3, im3)):
+        # a TMA copy takes 16-byte aligned planes (a fresh tensor, or rows of one)
+        staged, lanes = False, min(lanes, TILE_AMPS >> k)
     rc = _build.entry("mixer")(
         re3.data_ptr(), im3.data_ptr(), beta.data_ptr(), ore.data_ptr(),
-        oim.data_ptr(), b, x, k, y, ty, _build.stream(dev))
+        oim.data_ptr(), b, x, k, y, lanes, int(staged), _build.stream(dev))
     _build.check(rc, "mixer_group_strided")
     _build.count_launch("mixer_group_strided")
+    if staged:
+        _build.count_launch("mixer_strided_staged")
     return ore, oim
 
 

@@ -61,6 +61,7 @@ KERNELS = (
     "beta_grad",
     "phase_grad",
     "fused_layer_grads",  # reversed fused launches that wrote the gradients
+    "mixer_strided_staged",  # strided launches that took the staged path
 )
 
 

@@ -177,6 +177,68 @@ def test_strided_kernel_matches_plain(cuda_device, n, lo, k):
         torch.testing.assert_close(x, y, atol=2e-5, rtol=0)
 
 
+# (B, X, k, Y): the shapes of both paths `mixer.strided_geometry` picks from
+STRIDED_SHAPES = [
+    (3, 1, 7, 2),  # block body: 8-byte runs
+    (1, 3, 12, 2),  # block body, X not a power of two
+    (3, 1, 12, 2**7),  # block body: k = 12 leaves 2 lanes a stage
+    (1, 2, 6, 4),  # block body: the row cannot fill a stage
+    (3, 64, 6, 4),  # staged: 16-byte runs, 32 x a tile
+    (3, 96, 6, 4),  # staged, X not a power of two
+    (3, 64, 1, 2**7),  # staged: 32 x a tile
+    (1, 1, 1, 2**12),  # staged: one row of 4096 lanes
+    (3, 2, 3, 2**12),  # staged: 1024 lanes of 4096
+    (3, 4, 6, 2**7),  # staged: the tile is the (b, x) slab
+    (3, 2, 7, 2**7),  # staged: the n 20 layer's bit 7, 64 lanes of 128
+    (3, 3, 7, 2**12),  # staged, X = 3
+    (1, 2, 10, 2**4),  # staged: 8 lanes, two round trips
+    (3, 1, 11, 2**7),  # staged: 4 lanes, three round trips
+    (3, 1, 3, 2**19),  # staged: 1024 lanes in boxes of 256
+    (1, 1, 7, 2**19),  # staged: the n 26 layer's bit 19 group on one row
+]
+
+
+@pytest.mark.parametrize("b,x,k,y", STRIDED_SHAPES)
+def test_strided_kernel_on_both_paths(cuda_device, b, x, k, y):
+    """`mixer_group_strided` on the path `mixer.strided_geometry` picks,
+    against `ref.mixer_group` within 1e-5 of the largest amplitude; the same
+    bits on a second launch and for each row alone; the group at −β
+    undoes it within the same tolerance."""
+    gen = torch.Generator(device=cuda_device).manual_seed(131 * b + 17 * x + 7 * k + y)
+    shape = (b, x, 2**k, y)
+    re, im = (torch.randn(shape, generator=gen, device=cuda_device) for _ in range(2))
+    beta = 4 * torch.rand(b, generator=gen, device=cuda_device) - 2
+    staged, _ = mixer.strided_geometry(x, y, k, cuda_device)
+    ops.reset_launch_counts()
+    got = mixer.mixer_group_strided(re, im, beta, k)
+    assert ops.launch_counts()["mixer_strided_staged"] == int(staged)
+    _close_to_scale(got, ref.mixer_group(re, im, beta, k))
+    again = mixer.mixer_group_strided(re, im, beta, k)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+    for r in range(b):
+        alone = mixer.mixer_group_strided(re[r:r + 1], im[r:r + 1], beta[r:r + 1], k)
+        assert all(torch.equal(p, q[r:r + 1]) for p, q in zip(alone, got))
+    _close_to_scale(mixer.mixer_group_strided(*got, -beta, k), (re, im))
+
+
+@pytest.mark.parametrize("x,k,y,block_lanes", [(2, 7, 2**12, 32), (1, 3, 2**12, 512),
+                                                (64, 6, 4, 2)])
+def test_strided_paths_give_the_same_bits(cuda_device, x, k, y, block_lanes):
+    """The staged path and the block body (under a tuned tile that cannot
+    fill a stage) apply the same butterflies, qubit 0 first: the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(x + k + y)
+    re, im = (torch.randn((3, x, 2**k, y), generator=gen, device=cuda_device)
+              for _ in range(2))
+    beta = 4 * torch.rand(3, generator=gen, device=cuda_device) - 2
+    assert mixer.strided_geometry(x, y, k, cuda_device)[0]
+    staged = mixer.mixer_group_strided(re, im, beta, k)
+    table = {tuning.cache_key("mixer_strided", x * y): {"tile_y": block_lanes}}
+    with tuning.using_overrides(table):
+        assert mixer.strided_geometry(x, y, k, cuda_device) == (False, block_lanes)
+        block = mixer.mixer_group_strided(re, im, beta, k)
+    assert all(torch.equal(p, q) for p, q in zip(staged, block))
+
+
 @pytest.mark.parametrize("n", [4, 10, 15])
 def test_expectation_kernel_matches_plain_and_repeats_bitwise(cuda_device, n):
     re, im, cutv, _, _ = _inputs(n, 3, n, cuda_device)
@@ -212,7 +274,7 @@ def test_layer_counts_one_launch_per_kernel_call(cuda_device):
         "cutvals": 0, "cutvals_at": 0, "fused_phase_mixer_group": 1,
         "mixer_group_strided": 3, "mixer_group_trailing": 1, "expectation": 1,
         "apply_phase": 0, "cut_batch_dense": 0, "beta_grad": 0, "phase_grad": 0,
-        "fused_layer_grads": 0}
+        "fused_layer_grads": 0, "mixer_strided_staged": 3}  # every strided group staged
 
 
 def _card_inputs(n, b, seed, dev):
@@ -328,7 +390,8 @@ def test_fused_layer_grads_match_the_mirror_and_repeat_bitwise(cuda_device, n):
 def test_layer_at_26_qubits_launches_three_passes_each_way(cuda_device):
     """One fused and two strided launches forward, the same again in the
     adjoint, whose fused launch writes ∂γ and the ∂β of qubits 0–11; ∂β of
-    qubits 12–25 in one read of its own, and no ∂γ kernel."""
+    qubits 12–25 in one read of its own, and no ∂γ kernel. Every strided
+    launch takes the staged path."""
     n = 26
     re, im, cutv, g, b = _card_inputs(n, 1, 9, cuda_device)
     args = [t.clone().requires_grad_(True) for t in (re, im, g, b)]
@@ -338,9 +401,11 @@ def test_layer_at_26_qubits_launches_three_passes_each_way(cuda_device):
     torch.autograd.grad(out, args, (re, im))
     both = ops.launch_counts()
     none = dict.fromkeys(ops.KERNELS, 0)
-    assert forward == {**none, "fused_phase_mixer_group": 1, "mixer_group_strided": 2}
+    assert forward == {**none, "fused_phase_mixer_group": 1, "mixer_group_strided": 2,
+                       "mixer_strided_staged": 2}
     assert both == {**none, "fused_phase_mixer_group": 2, "mixer_group_strided": 4,
-                    "beta_grad": 1, "fused_layer_grads": 1}
+                    "beta_grad": 1, "fused_layer_grads": 1, "mixer_strided_staged": 4}
+    assert both["mixer_strided_staged"] == both["mixer_group_strided"]
 
 
 @pytest.mark.parametrize("schedule", ["faithful", "alternating"])

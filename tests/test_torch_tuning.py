@@ -189,8 +189,10 @@ def _geometry(calls):
 
 
 def test_wrappers_launch_builtin_geometry_with_tuning_off(recorder):
-    """Today's constants: common.cuh kTile = 4096 amplitudes a mixer block
-    (4096 >> k rows, 2^(12-k) lanes), 1024 states a cutvals block and a
+    """Today's constants: common.cuh kTile = 4096 amplitudes a fused block
+    (4096 >> k rows), mixer.cu kStageAmps = 8192 a strided tile (2^(13-k)
+    lanes, clamped to Y; a tile that cannot fill the stage runs the block
+    body), 1024 states a cutvals block and a
     cutvals_at block, 16384 amplitudes a pass-1
     expectation block, 128 spin rows and 64 staged K a cut_batch_dense
     block."""
@@ -201,18 +203,56 @@ def test_wrappers_launch_builtin_geometry_with_tuning_off(recorder):
         "expectation": {"parts": 1},  # 2^12 < 16384: one block a row
         "fused_layer": {"row_tile": 32},
         "mixer_matmul": {"row_tile": 32},
-        "mixer_strided": {"tile_y": 8},  # 2^(12-3) = 512 clamped to Y = 8
+        "mixer_strided": {"tile_y": 8},  # 2^(13-3) = 1024 clamped to Y = 8
         "cutvals": {"tile_b": 1024},
         "cutvals_at": {"tile_b": 1024},
         "cut_batch_dense": {"batch_tile": 128, "k_chunk": 64},
     }
+    # 2^3 rows of 8 lanes, 64 x a row: 4096 < 8192, so the block body
+    assert recorder["mixer"][-1][10] == 0
     # the gradient pass takes the fused pass's row_tile
     assert recorder["fused_layer_grads"][-1][15] == 32
     assert ops.launch_counts() == {
         "cutvals": 1, "cutvals_at": 1, "fused_phase_mixer_group": 2,
         "mixer_group_strided": 1, "mixer_group_trailing": 1, "expectation": 1,
         "apply_phase": 1, "cut_batch_dense": 1, "beta_grad": 1, "phase_grad": 1,
-        "fused_layer_grads": 1}
+        "fused_layer_grads": 1, "mixer_strided_staged": 0}
+
+
+@pytest.mark.parametrize("x,y,k,want", [
+    (2**7, 2**12, 7, (True, 64)),  # n 26, bit 12: 2^7 rows of 256-byte runs
+    (1, 2**19, 7, (True, 64)),  # n 26, bit 19
+    (2**7, 2**10, 7, (True, 64)),  # n 24, bit 10
+    (1, 2**17, 7, (True, 64)),  # n 24, bit 17
+    (2**6, 2**7, 7, (True, 64)),  # n 20, bit 7: Y = 128 lanes, two tiles
+    (1, 2**14, 6, (True, 128)),  # n 20, bit 14
+    (2**8, 4, 6, (True, 4)),  # 16-byte runs, 32 consecutive x a tile
+    (2**4, 4, 6, (False, 4)),  # the row cannot fill a stage
+    (1, 2, 7, (False, 2)),  # 8-byte runs
+    (2**3, 2**12, 1, (True, 4096)),
+    (1, 2**7, 1, (False, 128)),  # 2^8 amplitudes a row
+    (2**6, 2**7, 1, (True, 128)),  # 32 x a tile
+    (1, 2**19, 3, (True, 1024)),
+    (2**6, 8, 3, (False, 8)),
+    (1, 2**12, 12, (False, 1)),  # 2^12 x 2 lanes would fill the stage in 8-byte runs
+    (1, 2, 12, (False, 1)),
+])
+def test_strided_path_and_lanes_follow_the_shape(recorder, x, y, k, want):
+    """With tuning off the strided launch's path and lanes are a function
+    of (X, Y, k): the staged path where a tile of 8192 amplitudes fills
+    its stage with runs of at least 4 lanes (16 bytes), else the block
+    body on at most 4096 amplitudes. The wrapper launches what
+    `mixer.strided_geometry` says and counts a staged launch under both
+    names."""
+    assert mixer.strided_geometry(x, y, k, CPU) == want
+    staged, lanes = want
+    assert lanes << k <= (mixer.STAGE_AMPS if staged else fused_layer.TILE_AMPS)
+    re = torch.empty((1, x, 2**k, y))
+    ops.reset_launch_counts()
+    mixer.mixer_group_strided(re, re, torch.zeros(1), k)
+    assert recorder["mixer"][-1][5:11] == (1, x, k, y, lanes, int(staged))
+    counts = ops.launch_counts()
+    assert (counts["mixer_group_strided"], counts["mixer_strided_staged"]) == (1, int(staged))
 
 
 @pytest.mark.parametrize("n,lo,nbits,want", [
@@ -314,7 +354,7 @@ def test_wrappers_launch_the_override_with_tuning_on(recorder):
     ("expectation", {"tile": 64}),
     ("fused_layer", {"row_tile": 64}),  # 64 * 2^7 amplitudes > the shared tile
     ("mixer_matmul", {"row_tile": 3}),
-    ("mixer_strided", {"tile_y": 1024}),  # 2^3 * 1024 > the shared tile
+    ("mixer_strided", {"tile_y": 2048}),  # 2^3 * 2048 > the staged tile
     ("cutvals", {"tile_b": 4096}),
     ("cutvals", {"tile_b": 768}),  # not a power of two
     ("cutvals_at", {"tile_b": 16}),
@@ -391,7 +431,7 @@ def test_sweep_puts_the_default_first_and_never_loses_to_it(smoke_sweep):
         "expectation": {"tile": 1024},
         "mixer_matmul": {"row_tile": 8},  # 32 clamped to R = 2^3
         "fused_layer": {"row_tile": 8},
-        "mixer_strided": {"tile_y": 128},  # 512 clamped to Y = 2^7
+        "mixer_strided": {"tile_y": 128},  # 1024 clamped to Y = 2^7
         "cutvals": {"tile_b": 1024},
         "cutvals_at": {"tile_b": 1024},
         "cut_batch_dense": {"batch_tile": 128, "k_chunk": 64},
