@@ -15,7 +15,10 @@ Numbers compared, each with the limit the cell's file gives:
   merge_diff      vertices on which a solve's answer differs from the
                   reference's merge and refinement of that solve's own
                   candidates, over all solves;
-  value_diff      the largest |reported value − the answer's cut|.
+  value_diff      the largest |reported value − the answer's cut|;
+  qaoa_missing    solves whose QAOA stage the harness could not read
+                  (`bench.stage_of`), limit 0: the QAOA numbers are taken
+                  over the rows of the other solves.
 The merge is followed from the solver's candidates: the QAOA stage that
 this skips is judged by itself, on the drawn rows.
 """
@@ -33,7 +36,9 @@ from perfbench.reference import partition as ref_part
 from perfbench.reference import qaoa as ref_qaoa
 from perfbench.reference import refine as ref_refine
 
-NAMES = ("partition_diff", "qaoa_exp_err", "qaoa_prob_err", "merge_diff", "value_diff")
+NAMES = ("partition_diff", "qaoa_exp_err", "qaoa_prob_err", "merge_diff", "value_diff",
+         "qaoa_missing")
+EXACT_LIMITS = {"qaoa_missing": 0}  # fixed: a cell does not set them
 REF_AMPLITUDES = 1 << 26  # amplitudes of the rows the reference runs at once
 
 
@@ -53,8 +58,8 @@ class Solved:
     cross_edges: np.ndarray
     cross_weights: np.ndarray
     candidates: np.ndarray  # (M, K) basis indices
-    probs: np.ndarray  # (M, K) reported marginal probabilities
-    expectation: np.ndarray  # (M,) reported ⟨C⟩
+    probs: np.ndarray | None  # (M, K) reported marginal probabilities
+    expectation: np.ndarray | None  # (M,) reported ⟨C⟩; both None without the stage
 
 
 def cut(edges: np.ndarray, weights: np.ndarray, x) -> float:
@@ -147,7 +152,11 @@ def check(cfg: dict, limits: dict, qaoa_rows: int, solved: list[Solved], seed: i
           device) -> list[tuple[str, float, float]]:
     """[(name, number, limit)] over the window's solves."""
     nums, plans = exact_numbers(cfg, solved, device)
-    nums.update(qaoa_numbers(cfg, solved, plans, seed, qaoa_rows, device)["solver"])
+    staged = [j for j, s in enumerate(solved) if s.probs is not None]
+    nums["qaoa_missing"] = len(solved) - len(staged)
+    nums.update(qaoa_numbers(cfg, [solved[j] for j in staged], [plans[j] for j in staged],
+                             seed, qaoa_rows, device)["solver"])
+    limits = {**limits, **EXACT_LIMITS}
     return [(k, float(nums[k]), float(limits[k])) for k in NAMES]
 
 
@@ -177,6 +186,8 @@ def qaoa_numbers(cfg: dict, solved: list[Solved], plans, seed: int, qaoa_rows: i
     out = {"solver": {"qaoa_exp_err": 0.0, "qaoa_prob_err": 0.0}}
     if control:
         out["control"] = {"qaoa_exp_err": 0.0, "qaoa_prob_err": 0.0}
+    if not solved:
+        return out
     k = solved[0].candidates.shape[1]
     pairs = draw_rows(seed, [len(s.candidates) for s in solved], qaoa_rows)
     for n_sub, items in _by_size(pairs, plans):

@@ -9,6 +9,20 @@ standard output is the result with the cell's end-to-end metrics, with
 the check is printed with its limit, last on standard error and last in the
 result. The run fails, printing no result, without the devices, when the
 solver is missing, or when JAX or the JAX package was loaded.
+
+A cell of more than one chip, whose configuration names a mesh (``"mesh":
+"data=4"``), runs one rank a card, each a process of its own
+(``perfbench/lib/ranks.py``), through ``core.distributed.solve_distributed``.
+It is run the same way, one command on a host with four cards:
+
+    python3 perfbench/run.py --workload <cell> --seed <n> --seconds 51 --trace 0
+
+This process then starts the ranks and touches no card. Rank 0's check
+lines and result are printed here, last, once every rank has exited 0. The
+readings come from all the cards: the fullest card's peak, the mean of the
+cards' busy shares, the kernels' roofline over every card's launches and
+device time, the mfu over the chips; the spans are rank 0's. Other ranks'
+lines on standard error begin ``rank <r>:``.
 """
 
 import time
@@ -43,33 +57,43 @@ def main(argv=None) -> int:
 
     _cache_dirs()
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-    import torch
-
-    from perfbench.lib import bench, spec as spec_mod
+    from perfbench.lib import spec as spec_mod
 
     spec = spec_mod.load(args.workload)
-    if not torch.cuda.is_available() or torch.cuda.device_count() < spec.chips:
-        print(f"needs {spec.chips} CUDA device(s); found "
-              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
-              file=sys.stderr)
-        return 2
+    return run_cell(spec, args.seed, args.seconds, bool(args.trace), "cuda", T_START)
 
-    def log(line):
-        print(line, file=sys.stderr, flush=True)
 
-    result, checks = bench.run(spec, args.seed, args.seconds, bool(args.trace),
-                               "cuda", T_START, log=log)
-    foreign = bench.foreign_modules()
-    if foreign:
-        log(f"JAX or the JAX package was loaded: {', '.join(foreign)}")
-        return 3
-    correct = bench.is_correct(result, checks)
-    for name, value, limit in checks:
-        log(f"check {name} {value!r} limit {limit!r}")
-    out = {"correct": correct, **result,
-           "checks": {name: {"value": value, "limit": limit} for name, value, limit in checks}}
-    print(json.dumps(out), flush=True)
+def run_cell(spec, seed: int, seconds: float, trace: bool, device_type: str,
+             t_start: float) -> int:
+    """Run the cell, in this process on one card, or one rank a card with
+    this process starting the ranks (it imports no torch then, to start
+    them sooner); print its check and its result; returns the exit code."""
+    if spec.chips == 1:
+        from perfbench.lib import bench
+
+        short = bench.cuda_shortfall(spec.chips) if device_type == "cuda" else None
+        if short:
+            _log(short)
+            return 2
+        result, checks = bench.run(spec, seed, seconds, trace, device_type, t_start,
+                                   log=_log)
+        bench.refuse_foreign()
+        line = bench.result_line(result, checks)
+    else:
+        from perfbench.lib import ranks
+
+        code, outcome = ranks.launch(spec, seed, seconds, trace, device_type, t_start)
+        if code:
+            return code
+        line, _ = outcome
+    for name, c in line["checks"].items():
+        _log(f"check {name} {c['value']!r} limit {c['limit']!r}")
+    print(json.dumps(line), flush=True)
     return 0
+
+
+def _log(line):
+    print(line, file=sys.stderr, flush=True)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from perfbench.lib import bench, generate
-from perfbench.lib.bench import Window
+from perfbench.lib.bench import Card, Window
 from perfbench.lib.counts import kernel_counts, least_s_of
 from perfbench.lib.devtrace import Reading
 from perfbench.metrics import kernels_roofline
@@ -28,9 +28,11 @@ OPS = [("cutvals_fill<4>", 0, 2_700_000), ("fused_kernel<true>", 1, 2_574_000_00
 
 def _window(batches, calls=None):
     calls = len(batches) if calls is None else calls
+    card = Card(peak=0, batches=batches,
+                launches={op: k * calls for op, k in PER_CALL.items()},
+                trace=Reading(ops=OPS, busy_s=12.6, window_s=13.0, gaps=[]))
     return Window(config={"n_qubits": N}, rows=sum(batches), timings=[{}], window_s=13.0,
-                  trace=Reading(ops=OPS, busy_s=12.6, window_s=13.0, gaps=[]),
-                  launches={op: k * calls for op, k in PER_CALL.items()}, batches=batches)
+                  cards=[card])
 
 
 def _share_by_batch(batches):
@@ -47,7 +49,8 @@ def test_one_batch_reads_the_whole_solves_rows():
     counts = kernel_counts()
     w = _window([16])
     # the formula before batches were recorded: every launch at the solve's rows
-    least = sum(w.launches.get(m.OP, 0) * least_s_of(m, w.rows, N) for m in counts.values())
+    least = sum(w.cards[0].launches.get(m.OP, 0) * least_s_of(m, w.rows, N)
+                for m in counts.values())
     covered = sum(d for name, _, d in OPS if not name.startswith("elementwise"))
     lines = []
     assert kernels_roofline.read(w, lines.append) == 100.0 * least / (covered / 1e9)

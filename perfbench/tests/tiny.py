@@ -26,12 +26,15 @@ LIMITS = {"partition_diff": 0, "qaoa_exp_err": 1e-4, "qaoa_prob_err": 1e-4,
           "merge_diff": 0, "value_diff": 0}
 
 
-def spec(family: str, qaoa_rows: int = 1000) -> spec_mod.Spec:
+def spec(family: str, qaoa_rows: int = 1000, mesh: str | None = None) -> spec_mod.Spec:
+    """The tiny cell of ``family``; with ``mesh``, on as many chips as the
+    mesh has places."""
     bench_json = json.loads((spec_mod.ROOT / "BENCHMARK.json").read_text())
-    return spec_mod.Spec(name=f"tiny-{family}", chips=1, config=dict(CONFIGS[family]),
+    chips = 1 if mesh is None else spec_mod.mesh_places(mesh)
+    return spec_mod.Spec(name=f"tiny-{family}", chips=chips, config=dict(CONFIGS[family]),
                          traffic=dict(TRAFFIC[family]),
                          cell={"pool": 64, "qaoa_rows": qaoa_rows, "limits": dict(LIMITS)},
-                         end_to_end=bench_json["end_to_end"], per_layer=[])
+                         end_to_end=bench_json["end_to_end"], per_layer=[], mesh=mesh)
 
 
 def run(family: str, seed: int = 2**31 + 11, seconds: float = 0.3, **kw):
